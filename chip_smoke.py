@@ -15,10 +15,12 @@ Phases, each printing JSON lines (any failure raises and exits nonzero):
    k15mmtree and on the rungs it serves (both rungs of ResidualBlock, the
    safe rungs of gemm, FeedForward and k15mmtree), on rows inside the
    routing box and rows below its floor; K1 on the aggressive rungs of
-   gemm, FeedForward, k15mmseq and k15mmtree; at batches 1, 37 and 512,
-   with and without times, at max_iters 256 and 2 — every output lane and
-   time bit-identical; K1's certificate equal to the host ``verify_rows``
-   on converged rows;
+   gemm, FeedForward, k15mmseq and k15mmtree; at batches 1, 8, 37 and
+   512, with and without times, at max_iters 256 and 2 — every output
+   lane and time bit-identical; K2 at the cluster size its chooser picks
+   and at every size it allows for the stream (forced through the
+   wrapper's ``cluster`` keyword); K1's certificate equal to the host
+   ``verify_rows`` on converged rows;
 4. the main path: ``FifoAdvisor(design, EvalConfig(backend="cuda")).run(
    "grouped_sa", budget=1000, seed=0)`` on gemm, FeedForward and
    k15mmtree, whose history, frontier and hypervolume must equal the
@@ -26,11 +28,15 @@ Phases, each printing JSON lines (any failure raises and exits nonzero):
    numpy on 256 random rows, and its rung counts (``n_condensed``,
    ``n_cond_fail``, ``n_fallbacks``) against the plain ``fixpoint``
    backend's on the card; every launch counter is set to 0 just before
-   and read just after, and both kernels must have launched;
+   and read just after, and both kernels must have launched (K2's
+   launches also by cluster size);
 5. times: each kernel and its plain version with CUDA events, warm, at the
    512-row bucket per design (K2 also on ResidualBlock's aggressive rung,
-   with times), beside the bound (the larger of bytes over
-   3.35 TB/s and float32 operations over 67 TFLOP/s);
+   with times, and at the main path's shape: 8 rows below the box's floor
+   on FeedForward and k15mmtree, with the time per iteration of the
+   slowest row, the chosen cluster and how many clusters of each allowed
+   size the card holds at once), beside the bound (the larger of
+   bytes over 3.35 TB/s and float32 operations over 67 TFLOP/s);
 6. where the main path's time goes: each design's ``grouped_sa`` run
    again under ``torch.profiler`` (wall, device busy time, idle share);
 
@@ -68,7 +74,11 @@ K2_RUNGS = (("ResidualBlock", "aggressive"), ("ResidualBlock", "safe"),
             ("gemm", "safe"), ("FeedForward", "safe"), ("k15mmtree", "safe"))
 K1_DESIGNS = ("gemm", "FeedForward", "k15mmseq", "k15mmtree")
 MAIN_DESIGNS = ("gemm", "FeedForward", "k15mmtree")
-BATCHES = (1, 37, 512)
+BATCHES = (1, 8, 37, 512)
+#: the main path's K2 shape: grouped_sa's batches of at most 8 rows,
+#: padded to the 8-row bucket, mostly below the routing box's floor
+MAIN_ROWS = 8
+MAIN_SHAPE_DESIGNS = ("FeedForward", "k15mmtree")
 BUDGET = 1000
 
 _out_file = None
@@ -177,33 +187,65 @@ def k2_streams():
     return out
 
 
+def max_cluster(dev) -> int:
+    """The largest cluster K2 can launch on ``dev`` (8 or 16)."""
+    from repro_torch.kernels.fifo_eval import fifo_eval
+    return fifo_eval.max_cluster(dev.index or 0)
+
+
+def k2_active(dev, e_pad: int) -> dict:
+    """{cluster size: clusters resident at once} for a row of ``e_pad``
+    events at every size K2 allows: the rows one wave holds, which bounds
+    how far the chooser spreads."""
+    from repro_torch.kernels.fifo_eval import fifo_eval as k2
+    return {s: k2.active_clusters(dev.index or 0, s,
+                                  *k2.k2_cta_shape(e_pad, s))
+            for s in k2.k2_cluster_sizes(e_pad, max_cluster(dev))}
+
+
 def check_k2(dev, cmp: Compare) -> None:
+    """K2 at the cluster size the chooser picks and at every size it
+    allows (forced through the wrapper's ``cluster`` keyword), against
+    one plain run per case."""
     import torch
-    from repro_torch.kernels.fifo_eval.fifo_eval import fifo_eval
+    from repro_torch.kernels.fifo_eval.fifo_eval import (fifo_eval,
+                                                         k2_cluster_sizes,
+                                                         launch_shape)
     from repro_torch.kernels.fifo_eval.ref import fifo_eval_plain
     for label, g in k2_streams():
         for c in BATCHES:
             for rows_of in (box_rows, low_rows):
                 args, _, bound = kernel_args(g, rows_of(g, c, seed=0), dev,
                                              cert=False)
+                e_pad = int(args[6].shape[1])
+                chosen = launch_shape(c, e_pad, dev)[0]
+                sizes = k2_cluster_sizes(e_pad, max_cluster(dev))
                 for max_iters in (256, 2):
                     for with_times in (False, True):
-                        out, t = fifo_eval(*args, max_iters=max_iters,
-                                           bound=bound, with_times=with_times)
-                        torch.cuda.synchronize()
                         p_out, p_t = fifo_eval_plain(
                             *args, max_iters=max_iters, bound=bound,
                             with_times=with_times)
-                        what = (f"{label} {rows_of.__name__} C={c} "
-                                f"iters={max_iters} t={with_times}")
-                        cmp.same("fifo_eval", what, out, p_out)
-                        if with_times:
-                            cmp.same("fifo_eval", what + " times", t, p_t)
+                        for cluster in (None,) + sizes:
+                            out, t = fifo_eval(*args, max_iters=max_iters,
+                                               bound=bound,
+                                               with_times=with_times,
+                                               cluster=cluster)
+                            torch.cuda.synchronize()
+                            what = (f"{label} {rows_of.__name__} C={c} "
+                                    f"iters={max_iters} t={with_times} "
+                                    f"cluster={cluster or chosen}")
+                            cmp.same("fifo_eval", what, out, p_out)
+                            if with_times:
+                                cmp.same("fifo_eval", what + " times", t,
+                                         p_t)
                         emit({"phase": "check", "kernel": "fifo_eval",
                               "stream": label, "rows_of": rows_of.__name__,
-                              "e_pad": int(args[6].shape[1]), "rows": c,
+                              "e_pad": e_pad, "rows": c,
                               "max_iters": max_iters,
-                              "with_times": with_times, "equal": True,
+                              "with_times": with_times,
+                              "clusters": list(sizes), "chosen": chosen,
+                              "active": k2_active(dev, e_pad),
+                              "equal": True,
                               "converged": int((out[:, 1] > 0).sum()),
                               "over": int((out[:, 2] > 0).sum()),
                               "max_iters_run": int(out[:, 3].max())})
@@ -263,6 +305,7 @@ def check_k1(dev, cmp: Compare) -> None:
 def reset_counts():
     from repro_torch.kernels.fifo_eval import condensed, fifo_eval, ops
     fifo_eval.fifo_eval.launches = 0
+    fifo_eval.fifo_eval.clusters = {}
     condensed.fifo_eval_condensed.launches = 0
     ops.DISPATCH_COUNTS.clear()
 
@@ -270,6 +313,7 @@ def reset_counts():
 def read_counts() -> dict:
     from repro_torch.kernels.fifo_eval import condensed, fifo_eval, ops
     return {"fifo_eval": fifo_eval.fifo_eval.launches,
+            "fifo_eval_clusters": dict(fifo_eval.fifo_eval.clusters),
             "fifo_eval_condensed":
                 condensed.fifo_eval_condensed.launches,
             "dispatch": dict(ops.DISPATCH_COUNTS)}
@@ -316,6 +360,8 @@ def main_path(dev) -> dict:
               "equal_to_numpy": True,
               "launches": {k: counts[k] for k in
                            ("fifo_eval", "fifo_eval_condensed")},
+              "fifo_eval_launches_by_cluster":
+                  counts["fifo_eval_clusters"],
               "dispatch": counts["dispatch"],
               "n_condensed": st.n_condensed,
               "n_cond_fail": st.n_cond_fail,
@@ -364,6 +410,7 @@ def main_path(dev) -> dict:
           "wall_s": round(wall, 3), "equal_to_numpy": True,
           "launches": {k: counts[k] for k in
                        ("fifo_eval", "fifo_eval_condensed")},
+          "fifo_eval_launches_by_cluster": counts["fifo_eval_clusters"],
           "dispatch": counts["dispatch"], "n_condensed": st.n_condensed,
           "n_cond_fail": st.n_cond_fail, "n_fallbacks": st.n_fallbacks,
           "counts_equal_to_fixpoint": True,
@@ -446,25 +493,38 @@ def profile_main_path() -> None:
 
 def timings(dev) -> dict:
     from repro_torch.kernels.fifo_eval.condensed import fifo_eval_condensed
-    from repro_torch.kernels.fifo_eval.fifo_eval import fifo_eval
+    from repro_torch.kernels.fifo_eval.fifo_eval import (fifo_eval,
+                                                         launch_shape)
     from repro_torch.kernels.fifo_eval.ref import (fifo_eval_condensed_plain,
                                                    fifo_eval_plain)
     rows_out = {"fifo_eval": [], "fifo_eval_condensed": []}
-    k2_cases = [(name, raw_graph(name), False) for name in K2_DESIGNS]
-    k2_cases.append(("ResidualBlock/aggressive",
-                     rung("ResidualBlock", "aggressive"), True))
-    for label, g, with_times in k2_cases:
-        args, _, bound = kernel_args(g, box_rows(g, 512, seed=0), dev,
-                                     cert=False)
+    # (shape, label, graph, rows, with_times): the main path's 8-row
+    # batches below the box's floor, then the 512-row bucket
+    k2_cases = [("main_path", name, raw_graph(name),
+                 low_rows(raw_graph(name), MAIN_ROWS, seed=0), False)
+                for name in MAIN_SHAPE_DESIGNS]
+    k2_cases += [("bucket", name, raw_graph(name),
+                  box_rows(raw_graph(name), 512, seed=0), False)
+                 for name in K2_DESIGNS]
+    cg = rung("ResidualBlock", "aggressive")
+    k2_cases.append(("bucket", "ResidualBlock/aggressive", cg,
+                     box_rows(cg, 512, seed=0), True))
+    for shape, label, g, rows, with_times in k2_cases:
+        args, _, bound = kernel_args(g, rows, dev, cert=False)
         kw = dict(max_iters=256, bound=bound, with_times=with_times)
         out, t = fifo_eval(*args, **kw)
         ms = cuda_ms(lambda: fifo_eval(*args, **kw), reps=5)
         plain = cuda_ms(lambda: fifo_eval_plain(*args, **kw), reps=1)
         b, by = bound_ms(args, out, times=t)
+        c, e_pad = (int(x) for x in args[6].shape)
+        slowest = int(out[:, 3].max())
         rows_out["fifo_eval"].append(
-            {"design": label, "rows": int(args[6].shape[0]),
-             "e_pad": int(args[6].shape[1]), "with_times": with_times,
-             "iters_sum": int(out[:, 3].sum()), "ms": ms, "plain_ms": plain,
+            {"shape": shape, "design": label, "rows": c, "e_pad": e_pad,
+             "cluster": launch_shape(c, e_pad, dev)[0],
+             "active": k2_active(dev, e_pad),
+             "with_times": with_times, "iters_sum": int(out[:, 3].sum()),
+             "iters_max": slowest, "ms": ms,
+             "us_per_iter": ms * 1e3 / slowest, "plain_ms": plain,
              "bound_ms": b, "bound_by": by})
         emit({"phase": "time", "kernel": "fifo_eval",
               **rows_out["fifo_eval"][-1]})
@@ -540,8 +600,16 @@ def run() -> int:
                                            info["ptxas"])]
         spills = [int(x) for x in re.findall(r"(\d+) bytes spill stores",
                                              info["ptxas"])]
+        # per instance: "<kernel><K[, clustered]>": [registers, spill bytes]
+        names = [re.sub(r".*\d([a-z_]+_kernel)ILi(\d+)E(Lb\d)?.*",
+                        r"\1<\2\3>", n).replace("Lb1", ", cluster")
+                 .replace("Lb0", "")
+                 for n in re.findall(r"Function properties for (\S+)",
+                                     info["ptxas"])]
         ptxas = {"kernels": len(regs), "max_registers": max(regs),
-                 "max_spill_store_bytes": max(spills, default=0)}
+                 "max_spill_store_bytes": max(spills, default=0),
+                 "per_kernel": {n: [r, sp] for n, r, sp in
+                                zip(names, regs, spills)}}
     emit({"phase": "build", "built": info.get("built"),
           "nvcc_seconds": info.get("seconds"),
           "build_and_load_seconds": round(time.perf_counter() - t0, 3),
@@ -570,7 +638,17 @@ def run() -> int:
     for name, (source, replaces) in sources.items():
         # the reported time is the slowest design's 512-row bucket; every
         # design's numbers are in the "time" lines above
-        worst = max(times[name], key=lambda r: r["ms"])
+        worst = max((r for r in times[name] if r.get("shape") != "main_path"),
+                    key=lambda r: r["ms"])
+        extra = {}
+        if name == "fifo_eval":
+            # K2 also at the main path's shape, with the chosen clusters
+            keys = ("shape", "design", "rows", "e_pad", "cluster",
+                    "active", "iters_max", "ms", "us_per_iter", "plain_ms",
+                    "bound_ms", "bound_by")
+            extra = {"cluster": worst["cluster"], "shapes": [
+                {k: r[k] for k in keys} for r in times[name]
+                if r["shape"] == "main_path" or r is worst]}
         kernels.append({
             "name": name, "route": "cuda", "source": source,
             "replaces": replaces, "launches": launches[name],
@@ -579,7 +657,7 @@ def run() -> int:
             "bound_by": worst["bound_by"], "library_ms": None,
             "shape": {k: worst[k] for k in ("design", "rows", "e_pad")},
             "library_note": "no single PyTorch call computes a segmented "
-                            "max-plus fixpoint"})
+                            "max-plus fixpoint", **extra})
     emit({"kernels": kernels})
     emit({"phase": "done", "seconds": round(time.perf_counter() - t_start,
                                             3)})

@@ -1,6 +1,8 @@
-// Shared device code of the two fifo_eval kernels (fifo_eval.cu,
-// condensed.cu): one Jacobi step of the max-plus event-time fixpoint for
-// one config row, done by one thread block.
+// Device code of K1 (condensed.cu): one Jacobi step of the max-plus
+// event-time fixpoint for one config row, done by one thread block.  K2
+// (fifo_eval.cu) has its own cluster-wide step and uses only the scan
+// primitives here (combine, warp_inclusive_scan, block_exclusive_scan,
+// Scratch) and the NEG note below.
 //
 //   b = is_read ? t[data_idx] + rd_lat : t[bp_idx] + bp_base   (NEG if masked)
 //   m = seg_start ? max(b, delta) : b
@@ -252,10 +254,10 @@ cudaError_t launch_rows(Kernel kern, int c, int threads, size_t smem,
   return cudaGetLastError();
 }
 
-// The launch of both C entry points: checks e_pad, picks the block shape
+// The launch of K1's C entry point: checks e_pad, picks the block shape
 // and calls launch(std::integral_constant<int, K>, threads, smem), with
 // smem the bytes of one e_pad float buffer, for the K that pick_shape
-// chose.  The entry points pass a generic lambda that launches their
+// chose.  The entry point passes a generic lambda that launches its
 // kernel's K instance through launch_rows.
 template <typename Launch>
 cudaError_t dispatch(int c, int e_pad, Launch&& launch) {

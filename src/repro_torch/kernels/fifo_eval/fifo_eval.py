@@ -1,27 +1,62 @@
 """K2 wrapper: batched fixpoint over the full event stream.
 
-``fifo_eval`` launches the CUDA kernel (``csrc/fifo_eval.cu``, one thread
-block per config row) on CUDA tensors, and runs the plain torch version
+``fifo_eval`` launches the CUDA kernel (``csrc/fifo_eval.cu``) on CUDA
+tensors, and runs the plain torch version
 (:func:`repro_torch.kernels.fifo_eval.ref.fifo_eval_plain`) on CPU tensors.
 On any other device, or on inputs the kernel does not take, it raises.
 
 Output layout (float32, one row per config):
     [0] latency   [1] converged (0/1)   [2] over-bound (0/1)   [3] iters
+
+What bounds K2 on the H100 is the latency of one row-iteration, not bytes
+or operations: the main path sends batches of at most 8 rows, each row
+runs up to ``max_iters`` Jacobi steps in sequence, and every step is a
+gather, a scan and a reduction separated by barriers.  The design does
+three things about it:
+
+1. **Fold, once.**  Each thread loads its events' ten operands once per
+   launch (contiguous chunks, up to 16 bytes a thread and array) and
+   folds them into one gather address, one add and one delta per event
+   plus a mask of segment starts: 12 bytes an event instead of ~40.
+2. **Operands on chip.**  The folded operands stay in registers for the
+   whole launch; only the times move between iterations, in shared
+   memory.
+3. **One row over a thread-block cluster.**  A row is cut into
+   ``cluster`` slices, one per CTA; gathers outside the slice read the
+   peer CTA's shared memory, and the scan and the reductions cross the
+   cluster through distributed shared memory.  :func:`k2_launch_shape`
+   picks the cluster before the launch: long rows need enough CTAs to keep
+   their operands in registers, and few rows spread over more SMs as long
+   as they all fit the card at once (``cudaOccupancyMaxActiveClusters``,
+   through :func:`active_clusters`).
 """
 
 from __future__ import annotations
 
-from typing import Optional, Tuple
+import functools
+from typing import Mapping, Optional, Tuple
 
 import torch
 
 from repro_torch.kernels.fifo_eval import build
 from repro_torch.kernels.fifo_eval.ref import fifo_eval_plain
 
-#: largest padded event count the kernel takes (1024 threads x 32 events;
-#: the row's times must fit one block's shared memory)
+#: largest padded event count the kernel takes (8 CTAs x 4096 events)
 MAX_E_PAD = 32768
 OUT_LANES = 4
+
+#: events a CTA can keep in registers: 1024 threads x 4 events
+MAX_CTA_EVENTS = 4096
+#: events per thread the kernel is built for
+K2_EVENTS_PER_THREAD = (1, 2, 4)
+#: largest portable cluster (16 needs the card's non-portable opt-in)
+PORTABLE_CLUSTER = 8
+#: largest cluster the kernel takes
+MAX_CLUSTER = 16
+#: fewest events a CTA takes when the chooser spreads a row for latency
+MIN_SPREAD_EVENTS = 1024
+#: fewest events a CTA takes under a forced cluster
+MIN_CTA_EVENTS = 128
 
 _SHARED_F32 = ("delta", "segst", "is_read", "has_data", "end_bonus")
 _ROW_F32 = ("rd_lat", "bp_valid", "bp_base")
@@ -45,17 +80,105 @@ def check_operands(e_pad: int, shared: dict, row: dict,
             raise ValueError(f"{name} is not contiguous")
 
 
+def _pow2_ceil(n: int) -> int:
+    return 1 << max(0, (n - 1).bit_length())
+
+
+def k2_cluster_sizes(e_pad: int, max_cluster: int = PORTABLE_CLUSTER
+                     ) -> Tuple[int, ...]:
+    """Every cluster size K2 can run a row of ``e_pad`` events on: a power
+    of two, at least enough CTAs to hold the row's operands in registers
+    (:data:`MAX_CTA_EVENTS` each), at most ``max_cluster``, and at least
+    :data:`MIN_CTA_EVENTS` events a CTA."""
+    if not 0 < e_pad <= MAX_E_PAD:
+        raise ValueError(f"e_pad {e_pad} outside (0, {MAX_E_PAD}]")
+    need = _pow2_ceil(-(-e_pad // MAX_CTA_EVENTS))
+    sizes, s = [], need
+    while s <= max_cluster and (s == need or e_pad >= s * MIN_CTA_EVENTS):
+        sizes.append(s)
+        s *= 2
+    return tuple(sizes)
+
+
+def k2_cta_shape(e_pad: int, cluster: int) -> Tuple[int, int]:
+    """``(threads, k)`` of each CTA when a row of ``e_pad`` events is cut
+    into ``cluster`` slices: ``k`` is the fewest events per thread that fit
+    1024 threads, so each CTA runs as many threads as its slice allows."""
+    slice_ = -(-e_pad // cluster)
+    k = next(k for k in K2_EVENTS_PER_THREAD if -(-slice_ // k) <= 1024)
+    return -(-slice_ // (32 * k)) * 32, k
+
+
+def k2_launch_shape(c: int, e_pad: int, active: Mapping[int, int],
+                    max_cluster: int = PORTABLE_CLUSTER,
+                    cluster: Optional[int] = None) -> Tuple[int, int, int]:
+    """``(cluster, threads, k)`` of K2's launch for ``c`` rows of
+    ``e_pad`` events: CTAs per row, threads per CTA and events per thread
+    (each CTA owns ``threads * k`` consecutive events of its row).
+
+    ``active[s]`` is how many clusters of ``s`` CTAs (each of the shape
+    :func:`k2_cta_shape` gives) the card holds at once.  The cluster is
+    the smallest of :func:`k2_cluster_sizes` (enough CTAs for the operands
+    to stay in registers), raised while all ``c`` rows still run in one
+    wave (``c <= active[s]``) and each CTA keeps at least
+    :data:`MIN_SPREAD_EVENTS` events.  ``cluster`` forces a size; it must
+    be one of :func:`k2_cluster_sizes`."""
+    sizes = k2_cluster_sizes(e_pad, max_cluster)
+    if cluster is None:
+        cluster = sizes[0]
+        for s in sizes[1:]:
+            if c <= active.get(s, 0) and e_pad >= s * MIN_SPREAD_EVENTS:
+                cluster = s
+    elif cluster not in sizes:
+        raise ValueError(f"cluster {cluster} not in {sizes} for e_pad "
+                         f"{e_pad}")
+    return (cluster, *k2_cta_shape(e_pad, cluster))
+
+
+@functools.lru_cache(maxsize=None)
+def active_clusters(index: int, cluster: int, threads: int, k: int) -> int:
+    """Clusters of ``cluster`` CTAs of ``threads`` threads and ``k`` events
+    each that CUDA device ``index`` holds at once (0 when it cannot launch
+    that size)."""
+    with torch.cuda.device(index):
+        n = build.load().fifo_eval_active_clusters(cluster, threads, k)
+    if n < 0:
+        build.check(-n, "fifo_eval_active_clusters")
+    return n
+
+
+def max_cluster(index: int) -> int:
+    """The largest cluster K2 can launch on CUDA device ``index``: 16 when
+    one cluster of 16 CTAs of the largest shape fits, else 8."""
+    big = active_clusters(index, MAX_CLUSTER, 1024, K2_EVENTS_PER_THREAD[-1])
+    return MAX_CLUSTER if big >= 1 else PORTABLE_CLUSTER
+
+
+def launch_shape(c: int, e_pad: int, device: torch.device,
+                 cluster: Optional[int] = None) -> Tuple[int, int, int]:
+    """:func:`k2_launch_shape` for a CUDA ``device``."""
+    index = (device.index if device.index is not None
+             else torch.cuda.current_device())
+    top = max_cluster(index)
+    active = {s: active_clusters(index, s, *k2_cta_shape(e_pad, s))
+              for s in k2_cluster_sizes(e_pad, top)}
+    return k2_launch_shape(c, e_pad, active, top, cluster)
+
+
 def _ptr(x: Optional[torch.Tensor]):
     return None if x is None else x.data_ptr()
 
 
 def fifo_eval(delta, segst, is_read, has_data, data_idx, end_bonus,
               rd_lat, bp_idx, bp_valid, bp_base, *, max_iters: int,
-              bound: float, with_times: bool = False
+              bound: float, with_times: bool = False,
+              cluster: Optional[int] = None
               ) -> Tuple[torch.Tensor, Optional[torch.Tensor]]:
     """Shared operands (1, E_pad), per-config operands (C, E_pad).
     Returns (C, 4) float32 rows, plus the final (C, E_pad) times when
-    ``with_times`` (else None)."""
+    ``with_times`` (else None).  ``cluster`` forces K2's cluster size
+    (one of :func:`k2_cluster_sizes`); None lets :func:`k2_launch_shape`
+    choose.  The plain version on CPU tensors ignores it."""
     dev = rd_lat.device
     if dev.type == "cpu":
         return fifo_eval_plain(delta, segst, is_read, has_data, data_idx,
@@ -78,6 +201,7 @@ def fifo_eval(delta, segst, is_read, has_data, data_idx, end_bonus,
              if with_times else None)
     if C == 0:
         return out, times
+    n_cl, threads, k = launch_shape(C, e_pad, dev, cluster)
     lib = build.load()
     with torch.cuda.device(dev):
         stream = torch.cuda.current_stream(dev).cuda_stream
@@ -85,11 +209,15 @@ def fifo_eval(delta, segst, is_read, has_data, data_idx, end_bonus,
             _ptr(delta), _ptr(segst), _ptr(is_read), _ptr(has_data),
             _ptr(data_idx), _ptr(end_bonus), _ptr(rd_lat), _ptr(bp_idx),
             _ptr(bp_valid), _ptr(bp_base), _ptr(out), _ptr(times),
-            C, e_pad, int(max_iters), float(bound), stream)
+            C, e_pad, int(max_iters), float(bound), n_cl, threads, k,
+            stream)
     build.check(rc, "fifo_eval")
     fifo_eval.launches += 1
+    fifo_eval.clusters[n_cl] = fifo_eval.clusters.get(n_cl, 0) + 1
     return out, times
 
 
 #: kernel launches so far (a plain count; reset it by assigning 0)
 fifo_eval.launches = 0
+#: launches so far by cluster size (reset it by assigning {})
+fifo_eval.clusters = {}

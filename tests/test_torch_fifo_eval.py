@@ -4,6 +4,11 @@ tensors) equals the reference's jnp oracle ``fifo_eval_ref`` and its
 Pallas kernel in interpret mode, on all four output lanes and the final
 times — exact equality, since every time is an integer in float32."""
 
+import functools
+import glob
+import json
+import os
+
 import numpy as np
 import pytest
 import torch
@@ -12,9 +17,11 @@ import jax
 import jax.numpy as jnp
 
 from repro.core.backends import operands as ref_ops
+from repro.core.condense import condense_auto as ref_condense_auto
 from repro.core.design import Design
 from repro.core.simgraph import build_simgraph as ref_build_simgraph
 from repro.designs import make_design as ref_make_design
+from repro.designs.generate import DesignSpec, build_design
 from repro.designs.builder import map_stage, producer, sink, streams
 from repro.designs.ddcf import mult_by_2 as ref_mult_by_2
 from repro.kernels.fifo_eval.fifo_eval import fifo_eval_pallas
@@ -24,11 +31,16 @@ from repro.kernels.fifo_eval.ref import fifo_eval_ref
 from repro_torch.core import carry
 from repro_torch.core.backends import operands as ops_t
 from repro_torch.core.backends.base import UNRESOLVED
-from repro_torch.kernels.fifo_eval.fifo_eval import fifo_eval
+from repro_torch.core.backends.dispatch import BUCKETS
+from repro_torch.designs.streamhls import STREAMHLS_DESIGNS
+from repro_torch.kernels.fifo_eval.fifo_eval import (
+    K2_EVENTS_PER_THREAD, MAX_CTA_EVENTS, MAX_E_PAD, fifo_eval,
+    k2_cluster_sizes, k2_launch_shape)
 from repro_torch.kernels.fifo_eval.ref import fifo_eval_plain
 from repro_torch.kernels.fifo_eval.ops import make_batched_eval
 
 CPU = torch.device("cpu")
+CORPUS_DIR = os.path.join(os.path.dirname(__file__), "fuzz_corpus")
 
 
 def tiny_chain(count=10, lanes=1, width=32):
@@ -143,3 +155,92 @@ def test_iteration_cap_statuses_match_row_for_row(max_iters):
             np.testing.assert_array_equal(lat, r_lat)
         if max_iters == 2:
             assert (st == UNRESOLVED).any()
+
+
+# ---------------------------------------------------------------- K2 shape
+STREAMHLS_NAMES = sorted(STREAMHLS_DESIGNS)
+
+
+@functools.lru_cache(maxsize=None)
+def _stream_e_pads(name):
+    """E_pad of every stream K2 can meet on ``name`` (a Stream-HLS design,
+    or "corpus" for the fuzz corpus): the raw stream and its rungs."""
+    if name == "corpus":
+        graphs = []
+        for path in sorted(glob.glob(os.path.join(CORPUS_DIR, "*.json"))):
+            with open(path) as f:
+                spec = DesignSpec.from_json(json.load(f)["spec"])
+            graphs.append(ref_build_simgraph(build_design(spec).design))
+        assert graphs, "tests/fuzz_corpus/*.json missing"
+    else:
+        graphs = [ref_build_simgraph(ref_make_design(name))]
+    lanes = ops_t.LANES                  # build_operands' padding
+    return sorted({max(lanes, -(-h.n_events // lanes) * lanes)
+                   for g in graphs for h in [g, *ref_condense_auto(g)]})
+
+
+#: clusters of each size resident at once on a card of 132 SMs that could
+#: place one CTA on every SM
+ACTIVE_132 = {s: 132 // s for s in (1, 2, 4, 8, 16)}
+
+
+def _check_shape(c, e_pad, active, max_cluster, shape, forced=None):
+    cluster, threads, k = shape
+    sizes = k2_cluster_sizes(e_pad, max_cluster)
+    assert cluster in sizes and cluster & (cluster - 1) == 0
+    assert cluster <= max_cluster <= 16
+    if forced is not None:
+        assert cluster == forced
+    elif cluster > sizes[0]:
+        assert c <= active[cluster]      # spread only while one wave holds
+    assert threads % 32 == 0 and 32 <= threads <= 1024
+    assert k in K2_EVENTS_PER_THREAD
+    span = threads * k                   # events a CTA owns
+    assert span <= MAX_CTA_EVENTS        # its operands fit registers
+    assert span * cluster >= e_pad       # the row is covered
+    assert (span + 1) * 4 + 1024 <= 227 * 1024   # its t slice fits
+
+
+@pytest.mark.parametrize("name", STREAMHLS_NAMES + ["corpus"])
+def test_k2_launch_shape_fits_every_stream(name):
+    """The chooser's shape for every stream of a design and its rungs, at
+    every bucket size and both cluster caps, fits the kernel; every size
+    it allows fits when forced; rows above MAX_E_PAD raise."""
+    n_checked = 0
+    for e_pad in _stream_e_pads(name):
+        if e_pad > MAX_E_PAD:
+            with pytest.raises(ValueError):
+                k2_launch_shape(8, e_pad, ACTIVE_132)
+            continue
+        for max_cluster in (8, 16):
+            for c in BUCKETS:
+                _check_shape(c, e_pad, ACTIVE_132, max_cluster,
+                             k2_launch_shape(c, e_pad, ACTIVE_132,
+                                             max_cluster))
+                n_checked += 1
+            for s in k2_cluster_sizes(e_pad, max_cluster):
+                _check_shape(8, e_pad, ACTIVE_132, max_cluster,
+                             k2_launch_shape(8, e_pad, ACTIVE_132,
+                                             max_cluster, s),
+                             forced=s)
+    if name != "k15mmtree_relu":         # its raw stream is 33408 events
+        assert n_checked > 0
+
+
+def test_k2_launch_shape_spreads_few_rows():
+    """The main path's 8-row bucket spreads a long row over a cluster, but
+    only as far as all 8 rows run in one wave; 512 rows use the fewest
+    CTAs that hold the operands; an unknown forced size and an e_pad
+    beyond MAX_E_PAD raise."""
+    assert k2_launch_shape(8, 26496, ACTIVE_132, 16)[0] == 16
+    assert k2_launch_shape(8, 26496, {**ACTIVE_132, 16: 7}, 16)[0] == 8
+    assert k2_launch_shape(8, 26496, ACTIVE_132, 8)[0] == 8
+    assert k2_launch_shape(8, 13312, ACTIVE_132, 16)[0] == 8
+    assert k2_launch_shape(8, 13312, {**ACTIVE_132, 8: 7}, 16)[0] == 4
+    assert k2_launch_shape(512, 26496, ACTIVE_132, 16)[0] == 8
+    assert k2_launch_shape(512, 2560, ACTIVE_132, 16)[0] == 1
+    assert k2_cluster_sizes(MAX_E_PAD, 16) == (8, 16)
+    with pytest.raises(ValueError):
+        k2_launch_shape(8, 26496, ACTIVE_132, 16, cluster=4)
+    with pytest.raises(ValueError):
+        k2_launch_shape(8, MAX_E_PAD + 128, ACTIVE_132)

@@ -1,0 +1,145 @@
+#!/usr/bin/env python3
+"""Time K2 (``csrc/fifo_eval.cu``) of this tree against K2 of another
+checkout of the repository, in turns on one card.
+
+    python3 tools/k2_turns.py --parent DIR [--out FILE]
+
+``DIR`` is a checkout of an earlier commit (for example ``git archive``
+of the parent unpacked into a git-ignored directory).  Its kernel library
+is built from its own sources with its own ``build.py``, into its own
+build directory, and called through its own C entry point, and so is
+this tree's K2 (at the shape its chooser picks), so that both times are
+the kernels' and not the wrappers'.  Where the earlier entry point also
+takes a launch shape (cluster, threads, events per thread), it gets this
+tree's.  At each shape (the main path's 8 rows below the routing box's
+floor, and the 512-row bucket, on the raw streams and on ResidualBlock's
+aggressive rung) both kernels run on the same operands,
+must give equal outputs, and are timed with CUDA events in the order
+earlier, this, this, earlier.  This tree's K2 is then also timed at every
+cluster size its chooser allows for the shape (``by_cluster``), beside
+how many clusters of that size the card holds at once (``active``).
+Prints one JSON line per shape, then the ``nvidia-smi`` name and power
+limit.
+"""
+
+from __future__ import annotations
+
+import argparse
+import importlib.util
+import json
+import os
+import sys
+
+ROOT = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
+sys.path.insert(0, os.path.join(ROOT, "src"))
+sys.path.insert(0, ROOT)
+
+REPS = 5
+
+
+def load_parent_lib(parent: str):
+    """The earlier checkout's kernel library, built by its own build.py."""
+    path = os.path.join(parent, "src", "repro_torch", "kernels", "fifo_eval",
+                        "build.py")
+    spec = importlib.util.spec_from_file_location("parent_k2_build", path)
+    mod = importlib.util.module_from_spec(spec)
+    spec.loader.exec_module(mod)
+    return mod.load(), mod
+
+
+def main(argv=None) -> int:
+    ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
+    ap.add_argument("--parent", required=True)
+    ap.add_argument("--out")
+    a = ap.parse_args(argv)
+    import torch
+    if not torch.cuda.is_available():
+        print("k2_turns: no CUDA device", file=sys.stderr)
+        return 2
+    import chip_smoke as cs
+    from repro_torch.kernels.fifo_eval import build
+    from repro_torch.kernels.fifo_eval.fifo_eval import (k2_cluster_sizes,
+                                                         launch_shape)
+    lib, pbuild = load_parent_lib(os.path.abspath(a.parent))
+    # an entry point with (cluster, threads, k) after the bound
+    parent_takes_shape = len(pbuild.SIGNATURES["fifo_eval_launch"]) == 20
+    this_lib = build.load()
+    dev = torch.device("cuda")
+    if a.out:
+        os.makedirs(os.path.dirname(os.path.abspath(a.out)), exist_ok=True)
+    out_file = open(a.out, "w") if a.out else None
+
+    def emit(obj):
+        line = json.dumps(obj) if not isinstance(obj, str) else obj
+        print(line, flush=True)
+        if out_file:
+            out_file.write(line + "\n")
+
+    # (shape, label, graph, rows, c): the raw streams, and ResidualBlock's
+    # aggressive rung, which runs on clusters of one CTA
+    rb = cs.rung("ResidualBlock", "aggressive")
+    cases = [("main_path", n, cs.raw_graph(n), cs.low_rows, cs.MAIN_ROWS)
+             for n in cs.K2_DESIGNS]
+    cases += [("bucket", n, cs.raw_graph(n), cs.box_rows, 512)
+              for n in cs.K2_DESIGNS]
+    cases += [(shape, "ResidualBlock/aggressive", rb, rows_of, c)
+              for shape, rows_of, c in (("main_path", cs.low_rows,
+                                         cs.MAIN_ROWS),
+                                        ("bucket", cs.box_rows, 512))]
+    for shape, name, g, rows_of, c in cases:
+        args, _, bound = cs.kernel_args(g, rows_of(g, c, seed=0), dev,
+                                        cert=False)
+        e_pad = int(args[6].shape[1])
+        shape_ = launch_shape(c, e_pad, dev)
+        p_out = torch.empty((c, 4), dtype=torch.float32, device=dev)
+        out = torch.empty_like(p_out)
+        ptrs = [x.data_ptr() for x in args]
+        stream = torch.cuda.current_stream(dev).cuda_stream
+
+        p_shape = shape_ if parent_takes_shape else ()
+
+        def parent():
+            pbuild.check(lib.fifo_eval_launch(
+                *ptrs, p_out.data_ptr(), None, c, e_pad, 256, float(bound),
+                *p_shape, stream), "parent fifo_eval")
+
+        def this(shape_=shape_):
+            build.check(this_lib.fifo_eval_launch(
+                *ptrs, out.data_ptr(), None, c, e_pad, 256, float(bound),
+                *shape_, stream), "fifo_eval")
+
+        parent()
+        this()
+        torch.cuda.synchronize()
+        if not torch.equal(out, p_out):
+            raise AssertionError(f"{name} {shape}: outputs differ")
+        slowest = int(out[:, 3].max())
+        t_p1 = cs.cuda_ms(parent, REPS)
+        t_n1 = cs.cuda_ms(this, REPS)
+        t_n2 = cs.cuda_ms(this, REPS)
+        t_p2 = cs.cuda_ms(parent, REPS)
+        by_cluster = {}
+        for s in k2_cluster_sizes(e_pad, cs.max_cluster(dev)):
+            sh = launch_shape(c, e_pad, dev, cluster=s)
+            by_cluster[s] = cs.cuda_ms(lambda: this(sh), REPS)
+            if not torch.equal(out, p_out):
+                raise AssertionError(f"{name} {shape} cluster {s}: outputs "
+                                     f"differ")
+        b, by = cs.bound_ms(args, out)
+        emit({"shape": shape, "design": name, "rows": c, "e_pad": e_pad,
+              "cluster": shape_[0], "threads": shape_[1], "k": shape_[2],
+              "iters_max": slowest, "iters_sum": int(out[:, 3].sum()),
+              "parent_ms": [t_p1, t_p2], "ms": [t_n1, t_n2],
+              "parent_us_per_iter": min(t_p1, t_p2) * 1e3 / slowest,
+              "us_per_iter": min(t_n1, t_n2) * 1e3 / slowest,
+              "speedup": min(t_p1, t_p2) / min(t_n1, t_n2),
+              "by_cluster": by_cluster, "active": cs.k2_active(dev, e_pad),
+              "bound_ms": b, "bound_by": by, "equal": True})
+    emit(cs.nvidia_smi_line())
+    if out_file:
+        out_file.close()
+    return 0
+
+
+if __name__ == "__main__":
+    sys.exit(main())
