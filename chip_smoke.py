@@ -19,8 +19,9 @@ Phases, each printing JSON lines (any failure raises and exits nonzero):
    512, with and without times, at max_iters 256 and 2 — every output
    lane and time bit-identical; K2 at the cluster size its chooser picks
    and at every size it allows for the stream (forced through the
-   wrapper's ``cluster`` keyword); K1's certificate equal to the host
-   ``verify_rows`` on converged rows;
+   wrapper's ``cluster`` keyword), K1 at the shape its chooser picks and
+   at every shape it allows (``shape`` keyword); K1's certificate equal
+   to the host ``verify_rows`` on converged rows;
 4. the main path: ``FifoAdvisor(design, EvalConfig(backend="cuda")).run(
    "grouped_sa", budget=1000, seed=0)`` on gemm, FeedForward and
    k15mmtree, whose history, frontier and hypervolume must equal the
@@ -29,14 +30,17 @@ Phases, each printing JSON lines (any failure raises and exits nonzero):
    ``n_cond_fail``, ``n_fallbacks``) against the plain ``fixpoint``
    backend's on the card; every launch counter is set to 0 just before
    and read just after, and both kernels must have launched (K2's
-   launches also by cluster size);
-5. times: each kernel and its plain version with CUDA events, warm, at the
-   512-row bucket per design (K2 also on ResidualBlock's aggressive rung,
-   with times, and at the main path's shape: 8 rows below the box's floor
-   on FeedForward and k15mmtree, with the time per iteration of the
-   slowest row, the chosen cluster and how many clusters of each allowed
-   size the card holds at once), beside the bound (the larger of
-   bytes over 3.35 TB/s and float32 operations over 67 TFLOP/s);
+   launches also by cluster size, K1's by rows per launch);
+5. times: each kernel and its plain version, warm, beside the bound (the
+   larger of bytes over 3.35 TB/s and float32 operations over 67
+   TFLOP/s).  K2 with CUDA events at the 512-row bucket per design (also
+   on ResidualBlock's aggressive rung, with times) and at the main path's
+   shape: 8 rows below the box's floor on FeedForward and k15mmtree, with
+   the time per iteration of the slowest row, the chosen cluster and how
+   many clusters of each allowed size the card holds at once.  K1 as a
+   CUDA graph of 20 launches (no host overhead) at the main path's 1 and
+   8 rows and at the 512-row bucket, each also at max_iters 1 (the
+   difference is the iterations after the first);
 6. where the main path's time goes: each design's ``grouped_sa`` run
    again under ``torch.profiler`` (wall, device busy time, idle share);
 
@@ -79,6 +83,11 @@ BATCHES = (1, 8, 37, 512)
 #: padded to the 8-row bucket, mostly below the routing box's floor
 MAIN_ROWS = 8
 MAIN_SHAPE_DESIGNS = ("FeedForward", "k15mmtree")
+#: the main path's K1 batches: rows inside the routing box, padded to the
+#: 1- and 8-row buckets
+K1_MAIN_ROWS = (1, 8)
+#: launches per CUDA graph when a kernel is timed without host overhead
+GRAPH_REPS = 20
 BUDGET = 1000
 
 _out_file = None
@@ -252,11 +261,16 @@ def check_k2(dev, cmp: Compare) -> None:
 
 
 def check_k1(dev, cmp: Compare) -> None:
+    """K1 at the shape its chooser picks and at every shape it allows
+    (forced through the wrapper's ``shape`` keyword), against one plain
+    run per case; its certificate against the host ``verify_rows``."""
     import numpy as np
     import torch
     from repro_torch.core.backends.base import CONVERGED
     from repro_torch.core.condense import verify_rows
-    from repro_torch.kernels.fifo_eval.condensed import fifo_eval_condensed
+    from repro_torch.kernels.fifo_eval.condensed import (fifo_eval_condensed,
+                                                         k1_shapes,
+                                                         launch_shape)
     from repro_torch.kernels.fifo_eval.ops import _status
     from repro_torch.kernels.fifo_eval.ref import fifo_eval_condensed_plain
     for name in K1_DESIGNS:
@@ -264,41 +278,50 @@ def check_k1(dev, cmp: Compare) -> None:
         for c in BATCHES:
             rows = box_rows(cg, c, seed=0)
             args, structural, bound = kernel_args(cg, rows, dev, cert=True)
+            e_pad, v_pad = int(args[6].shape[1]), int(args[10].shape[1])
+            chosen = launch_shape(c, e_pad, v_pad, dev)
+            shapes = k1_shapes(e_pad, v_pad)
             for max_iters in (256, 2):
                 for with_times in (False, True):
-                    out, t = fifo_eval_condensed(
-                        *args, max_iters=max_iters, bound=bound,
-                        with_times=with_times)
-                    torch.cuda.synchronize()
                     p_out, p_t = fifo_eval_condensed_plain(
                         *args, max_iters=max_iters, bound=bound,
                         with_times=with_times)
-                    what = f"{name} C={c} iters={max_iters} t={with_times}"
-                    cmp.same("fifo_eval_condensed", what, out, p_out)
-                    n_cert = int((out[:, 4] > 0).sum())
+                    for shape in (None,) + shapes:
+                        out, t = fifo_eval_condensed(
+                            *args, max_iters=max_iters, bound=bound,
+                            with_times=with_times, shape=shape)
+                        torch.cuda.synchronize()
+                        what = (f"{name} C={c} iters={max_iters} "
+                                f"t={with_times} shape={shape or chosen}")
+                        cmp.same("fifo_eval_condensed", what, out, p_out)
+                        if with_times:
+                            cmp.same("fifo_eval_condensed", what + " times",
+                                     t, p_t)
+                    n_cert = int((p_out[:, 4] > 0).sum())
                     if with_times:
-                        cmp.same("fifo_eval_condensed", what + " times", t,
-                                 p_t)
-                        status = _status(out, structural).cpu().numpy()
-                        cert = ((out[:, 4] > 0).cpu().numpy()
+                        status = _status(p_out, structural).cpu().numpy()
+                        cert = ((p_out[:, 4] > 0).cpu().numpy()
                                 & (status == CONVERGED))
                         conv = status == CONVERGED
                         want = np.zeros(c, dtype=bool)
                         if conv.any():
-                            times = np.rint(t.cpu().numpy()).astype(np.int64)
+                            times = np.rint(p_t.cpu().numpy()).astype(
+                                np.int64)
                             want[conv] = verify_rows(
                                 cg, rows[conv].astype(np.int64), times[conv])
                         if not np.array_equal(cert, want):
                             raise AssertionError(
-                                f"fifo_eval_condensed {what}: certificate "
-                                f"differs from verify_rows")
+                                f"fifo_eval_condensed {name} C={c} iters="
+                                f"{max_iters}: certificate differs from "
+                                f"verify_rows")
                     emit({"phase": "check", "kernel": "fifo_eval_condensed",
-                          "design": name, "e_pad": int(args[6].shape[1]),
-                          "v_pad": int(args[10].shape[1]), "rows": c,
-                          "max_iters": max_iters, "with_times": with_times,
-                          "equal": True, "certified": n_cert,
-                          "converged": int((out[:, 1] > 0).sum()),
-                          "max_iters_run": int(out[:, 3].max())})
+                          "design": name, "e_pad": e_pad, "v_pad": v_pad,
+                          "rows": c, "max_iters": max_iters,
+                          "with_times": with_times, "chosen": list(chosen),
+                          "shapes": len(shapes), "equal": True,
+                          "certified": n_cert,
+                          "converged": int((p_out[:, 1] > 0).sum()),
+                          "max_iters_run": int(p_out[:, 3].max())})
 
 
 # --------------------------------------------------------------- main path
@@ -307,6 +330,7 @@ def reset_counts():
     fifo_eval.fifo_eval.launches = 0
     fifo_eval.fifo_eval.clusters = {}
     condensed.fifo_eval_condensed.launches = 0
+    condensed.fifo_eval_condensed.rows = {}
     ops.DISPATCH_COUNTS.clear()
 
 
@@ -316,6 +340,8 @@ def read_counts() -> dict:
             "fifo_eval_clusters": dict(fifo_eval.fifo_eval.clusters),
             "fifo_eval_condensed":
                 condensed.fifo_eval_condensed.launches,
+            "fifo_eval_condensed_rows":
+                dict(condensed.fifo_eval_condensed.rows),
             "dispatch": dict(ops.DISPATCH_COUNTS)}
 
 
@@ -326,6 +352,7 @@ def main_path(dev) -> dict:
     from repro_torch.core.simgraph import build_simgraph
     from repro_torch.designs import make_design
     totals = {"fifo_eval": 0, "fifo_eval_condensed": 0}
+    k1_rows = {}
     for name in MAIN_DESIGNS:
         reset_counts()
         t0 = time.perf_counter()
@@ -336,6 +363,8 @@ def main_path(dev) -> dict:
         counts = read_counts()
         for k in totals:
             totals[k] += counts[k]
+        for c, n in counts["fifo_eval_condensed_rows"].items():
+            k1_rows.setdefault(name, {})[c] = n
         t1 = time.perf_counter()
         ref = FifoAdvisor(make_design(name), EvalConfig(backend="numpy")
                           ).run("grouped_sa", budget=BUDGET, seed=0)
@@ -362,6 +391,8 @@ def main_path(dev) -> dict:
                            ("fifo_eval", "fifo_eval_condensed")},
               "fifo_eval_launches_by_cluster":
                   counts["fifo_eval_clusters"],
+              "fifo_eval_condensed_launches_by_rows":
+                  counts["fifo_eval_condensed_rows"],
               "dispatch": counts["dispatch"],
               "n_condensed": st.n_condensed,
               "n_cond_fail": st.n_cond_fail,
@@ -411,6 +442,8 @@ def main_path(dev) -> dict:
           "launches": {k: counts[k] for k in
                        ("fifo_eval", "fifo_eval_condensed")},
           "fifo_eval_launches_by_cluster": counts["fifo_eval_clusters"],
+          "fifo_eval_condensed_launches_by_rows":
+              counts["fifo_eval_condensed_rows"],
           "dispatch": counts["dispatch"], "n_condensed": st.n_condensed,
           "n_cond_fail": st.n_cond_fail, "n_fallbacks": st.n_fallbacks,
           "counts_equal_to_fixpoint": True,
@@ -418,8 +451,9 @@ def main_path(dev) -> dict:
     for k, n in totals.items():
         if n == 0:
             raise AssertionError(f"main path never launched {k}")
-    emit({"phase": "main_path_launches", **totals})
-    return totals
+    emit({"phase": "main_path_launches", **totals,
+          "fifo_eval_condensed_rows_by_design": k1_rows})
+    return totals, k1_rows
 
 
 # ------------------------------------------------------------------ timing
@@ -435,6 +469,21 @@ def cuda_ms(fn, reps: int) -> float:
     end.record()
     torch.cuda.synchronize()
     return start.elapsed_time(end) / reps
+
+
+def graph_ms(fn, reps: int = GRAPH_REPS) -> float:
+    """Device time of one call of ``fn`` (kernel launches on the current
+    stream): ``reps`` calls captured in one CUDA graph, replayed and timed
+    with CUDA events, so that the host's launch overhead is not counted."""
+    import torch
+    fn()
+    torch.cuda.synchronize()
+    g = torch.cuda.CUDAGraph()
+    with torch.cuda.graph(g, capture_error_mode="relaxed"):
+        for _ in range(reps):
+            fn()
+    torch.cuda.synchronize()
+    return cuda_ms(g.replay, reps=3) / reps
 
 
 def bound_ms(args, out, times=None, cert_slots: int = 0):
@@ -493,6 +542,8 @@ def profile_main_path() -> None:
 
 def timings(dev) -> dict:
     from repro_torch.kernels.fifo_eval.condensed import fifo_eval_condensed
+    from repro_torch.kernels.fifo_eval.condensed import (
+        launch_shape as k1_launch_shape)
     from repro_torch.kernels.fifo_eval.fifo_eval import (fifo_eval,
                                                          launch_shape)
     from repro_torch.kernels.fifo_eval.ref import (fifo_eval_condensed_plain,
@@ -528,24 +579,34 @@ def timings(dev) -> dict:
              "bound_ms": b, "bound_by": by})
         emit({"phase": "time", "kernel": "fifo_eval",
               **rows_out["fifo_eval"][-1]})
+    # K1: the main path's batches (1 or 8 rows inside the routing box,
+    # padded to the buckets), then the 512-row bucket; each also at
+    # max_iters 1, so that the difference is the iterations after the first
     for name in K1_DESIGNS:
         cg = rung(name, "aggressive")
-        args, _, bound = kernel_args(cg, box_rows(cg, 512, seed=0), dev,
-                                     cert=True)
-        kw = dict(max_iters=256, bound=bound)
-        out, _ = fifo_eval_condensed(*args, **kw)
-        ms = cuda_ms(lambda: fifo_eval_condensed(*args, **kw), reps=5)
-        plain = cuda_ms(lambda: fifo_eval_condensed_plain(*args, **kw),
-                        reps=1)
-        b, by = bound_ms(args, out, cert_slots=args[10].numel())
-        rows_out["fifo_eval_condensed"].append(
-            {"design": name, "rows": int(args[6].shape[0]),
-             "e_pad": int(args[6].shape[1]),
-             "v_pad": int(args[10].shape[1]),
-             "iters_sum": int(out[:, 3].sum()), "ms": ms, "plain_ms": plain,
-             "bound_ms": b, "bound_by": by})
-        emit({"phase": "time", "kernel": "fifo_eval_condensed",
-              **rows_out["fifo_eval_condensed"][-1]})
+        for shape, c in [("main_path", c) for c in K1_MAIN_ROWS] + [
+                ("bucket", 512)]:
+            args, _, bound = kernel_args(cg, box_rows(cg, c, seed=0), dev,
+                                         cert=True)
+            e_pad, v_pad = int(args[6].shape[1]), int(args[10].shape[1])
+            kw = dict(max_iters=256, bound=bound)
+            kw1 = dict(max_iters=1, bound=bound)
+            out, _ = fifo_eval_condensed(*args, **kw)
+            ms = graph_ms(lambda: fifo_eval_condensed(*args, **kw))
+            ms1 = graph_ms(lambda: fifo_eval_condensed(*args, **kw1))
+            plain = cuda_ms(lambda: fifo_eval_condensed_plain(*args, **kw),
+                            reps=1)
+            b, by = bound_ms(args, out, cert_slots=args[10].numel())
+            rows_out["fifo_eval_condensed"].append(
+                {"shape": shape, "design": name, "rows": c, "e_pad": e_pad,
+                 "v_pad": v_pad,
+                 "launch": list(k1_launch_shape(c, e_pad, v_pad, dev)),
+                 "iters_sum": int(out[:, 3].sum()),
+                 "iters_max": int(out[:, 3].max()), "ms": ms,
+                 "ms_max_iters_1": ms1, "plain_ms": plain, "bound_ms": b,
+                 "bound_by": by, "bound_share": b / ms})
+            emit({"phase": "time", "kernel": "fifo_eval_condensed",
+                  **rows_out["fifo_eval_condensed"][-1]})
     return rows_out
 
 
@@ -623,7 +684,7 @@ def run() -> int:
           round(time.perf_counter() - t0, 3), "max_abs_err": cmp.err})
 
     t0 = time.perf_counter()
-    launches = main_path(dev)
+    launches, k1_rows = main_path(dev)
     emit({"phase": "main_path_done",
           "seconds": round(time.perf_counter() - t0, 3)})
 
@@ -641,6 +702,15 @@ def run() -> int:
         worst = max((r for r in times[name] if r.get("shape") != "main_path"),
                     key=lambda r: r["ms"])
         extra = {}
+        if name == "fifo_eval_condensed":
+            # K1 also at the main path's shapes (1 and 8 rows)
+            keys = ("shape", "design", "rows", "e_pad", "v_pad", "launch",
+                    "iters_max", "ms", "ms_max_iters_1", "plain_ms",
+                    "bound_ms", "bound_by")
+            extra = {"launch": worst["launch"],
+                     "launches_by_rows": k1_rows, "shapes": [
+                         {k: r[k] for k in keys} for r in times[name]
+                         if r["shape"] == "main_path" or r is worst]}
         if name == "fifo_eval":
             # K2 also at the main path's shape, with the chosen clusters
             keys = ("shape", "design", "rows", "e_pad", "cluster",

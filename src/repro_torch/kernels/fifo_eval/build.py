@@ -33,7 +33,9 @@ _P, _I, _F = ctypes.c_void_p, ctypes.c_int, ctypes.c_float
 SIGNATURES = {
     "fifo_eval_launch": [_P] * 12 + [_I, _I, _I, _F, _I, _I, _I, _P],
     "fifo_eval_active_clusters": [_I, _I, _I],
-    "fifo_eval_condensed_launch": [_P] * 16 + [_I, _I, _I, _I, _F, _P],
+    "fifo_eval_condensed_launch": [_P] * 16 + [_I, _I, _I, _I, _F]
+                                  + [_I] * 3 + [_P],
+    "fifo_eval_condensed_active": [_I] * 5,
 }
 
 _lock = threading.Lock()

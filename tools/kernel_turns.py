@@ -1,8 +1,9 @@
 #!/usr/bin/env python3
-"""Time K2 (``csrc/fifo_eval.cu``) of this tree against K2 of another
-checkout of the repository, in turns on one card.
+"""Time both kernels of this tree, K2 (``csrc/fifo_eval.cu``) and K1
+(``csrc/condensed.cu``), against those of another checkout of the
+repository, in turns on one card.
 
-    python3 tools/k2_turns.py --parent DIR [--out FILE]
+    python3 tools/kernel_turns.py --parent DIR [--out FILE]
 
 ``DIR`` is a checkout of an earlier commit (for example ``git archive``
 of the parent unpacked into a git-ignored directory).  Its kernel library
@@ -18,8 +19,17 @@ must give equal outputs, and are timed with CUDA events in the order
 earlier, this, this, earlier.  This tree's K2 is then also timed at every
 cluster size its chooser allows for the shape (``by_cluster``), beside
 how many clusters of that size the card holds at once (``active``).
-Prints one JSON line per shape, then the ``nvidia-smi`` name and power
-limit.
+
+K1 runs the same way on the aggressive rungs of gemm, FeedForward,
+k15mmseq and k15mmtree, on rows inside the routing box: the main path's
+1- and 8-row batches and the 512-row bucket.  Its launches are timed as
+CUDA graphs of 20 launches (``chip_smoke.graph_ms``), so that the host's
+launch overhead is not counted; this tree's K1 gets the shape its chooser
+picks, and is then also timed at every shape the chooser allows
+(``by_shape``).
+
+Prints one JSON line per kernel and shape, then the ``nvidia-smi`` name
+and power limit.
 """
 
 from __future__ import annotations
@@ -41,7 +51,7 @@ def load_parent_lib(parent: str):
     """The earlier checkout's kernel library, built by its own build.py."""
     path = os.path.join(parent, "src", "repro_torch", "kernels", "fifo_eval",
                         "build.py")
-    spec = importlib.util.spec_from_file_location("parent_k2_build", path)
+    spec = importlib.util.spec_from_file_location("parent_kernel_build", path)
     mod = importlib.util.module_from_spec(spec)
     spec.loader.exec_module(mod)
     return mod.load(), mod
@@ -54,10 +64,13 @@ def main(argv=None) -> int:
     a = ap.parse_args(argv)
     import torch
     if not torch.cuda.is_available():
-        print("k2_turns: no CUDA device", file=sys.stderr)
+        print("kernel_turns: no CUDA device", file=sys.stderr)
         return 2
     import chip_smoke as cs
     from repro_torch.kernels.fifo_eval import build
+    from repro_torch.kernels.fifo_eval.condensed import k1_shapes
+    from repro_torch.kernels.fifo_eval.condensed import (
+        launch_shape as k1_launch_shape)
     from repro_torch.kernels.fifo_eval.fifo_eval import (k2_cluster_sizes,
                                                          launch_shape)
     lib, pbuild = load_parent_lib(os.path.abspath(a.parent))
@@ -126,7 +139,8 @@ def main(argv=None) -> int:
                 raise AssertionError(f"{name} {shape} cluster {s}: outputs "
                                      f"differ")
         b, by = cs.bound_ms(args, out)
-        emit({"shape": shape, "design": name, "rows": c, "e_pad": e_pad,
+        emit({"kernel": "fifo_eval", "shape": shape, "design": name,
+              "rows": c, "e_pad": e_pad,
               "cluster": shape_[0], "threads": shape_[1], "k": shape_[2],
               "iters_max": slowest, "iters_sum": int(out[:, 3].sum()),
               "parent_ms": [t_p1, t_p2], "ms": [t_n1, t_n2],
@@ -135,6 +149,63 @@ def main(argv=None) -> int:
               "speedup": min(t_p1, t_p2) / min(t_n1, t_n2),
               "by_cluster": by_cluster, "active": cs.k2_active(dev, e_pad),
               "bound_ms": b, "bound_by": by, "equal": True})
+
+    # K1: an entry point that takes this tree's shape (warps, k, split)
+    # after the bound
+    k1_takes_shape = len(pbuild.SIGNATURES["fifo_eval_condensed_launch"]) \
+        == len(build.SIGNATURES["fifo_eval_condensed_launch"])
+    for name in cs.K1_DESIGNS:
+        cg = cs.rung(name, "aggressive")
+        for shape, c in [("main_path", c) for c in cs.K1_MAIN_ROWS] + [
+                ("bucket", 512)]:
+            args, _, bound = cs.kernel_args(cg, cs.box_rows(cg, c, seed=0),
+                                            dev, cert=True)
+            e_pad, v_pad = int(args[6].shape[1]), int(args[10].shape[1])
+            chosen = tuple(k1_launch_shape(c, e_pad, v_pad, dev))
+            p_out = torch.empty((c, 5), dtype=torch.float32, device=dev)
+            out = torch.empty_like(p_out)
+            ptrs = [x.data_ptr() for x in args]
+
+            def parent():
+                pbuild.check(lib.fifo_eval_condensed_launch(
+                    *ptrs, p_out.data_ptr(), None, c, e_pad, v_pad, 256,
+                    float(bound), *(chosen if k1_takes_shape else ()),
+                    torch.cuda.current_stream(dev).cuda_stream),
+                    "parent fifo_eval_condensed")
+
+            def this(sh=chosen):
+                build.check(this_lib.fifo_eval_condensed_launch(
+                    *ptrs, out.data_ptr(), None, c, e_pad, v_pad, 256,
+                    float(bound), *sh,
+                    torch.cuda.current_stream(dev).cuda_stream),
+                    "fifo_eval_condensed")
+
+            parent()
+            this()
+            torch.cuda.synchronize()
+            if not torch.equal(out, p_out):
+                raise AssertionError(f"K1 {name} {c} rows: outputs differ")
+            t_p1 = cs.graph_ms(parent)
+            t_n1 = cs.graph_ms(this)
+            t_n2 = cs.graph_ms(this)
+            t_p2 = cs.graph_ms(parent)
+            by_shape = {}
+            for sh in k1_shapes(e_pad, v_pad):
+                out.zero_()
+                by_shape[str(list(sh))] = cs.graph_ms(lambda: this(sh))
+                if not torch.equal(out, p_out):
+                    raise AssertionError(f"K1 {name} {c} rows shape {sh}: "
+                                         f"outputs differ")
+            b, by = cs.bound_ms(args, out, cert_slots=args[10].numel())
+            emit({"kernel": "fifo_eval_condensed", "shape": shape,
+                  "design": name, "rows": c, "e_pad": e_pad, "v_pad": v_pad,
+                  "launch": list(chosen),
+                  "iters_max": int(out[:, 3].max()),
+                  "iters_sum": int(out[:, 3].sum()),
+                  "parent_ms": [t_p1, t_p2], "ms": [t_n1, t_n2],
+                  "speedup": min(t_p1, t_p2) / min(t_n1, t_n2),
+                  "by_shape": by_shape, "bound_ms": b, "bound_by": by,
+                  "equal": True})
     emit(cs.nvidia_smi_line())
     if out_file:
         out_file.close()
