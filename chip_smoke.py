@@ -15,13 +15,14 @@ Phases, each printing JSON lines (any failure raises and exits nonzero):
    k15mmtree and on the rungs it serves (both rungs of ResidualBlock, the
    safe rungs of gemm, FeedForward and k15mmtree), on rows inside the
    routing box and rows below its floor; K1 on the aggressive rungs of
-   gemm, FeedForward, k15mmseq and k15mmtree; at batches 1, 8, 37 and
-   512, with and without times, at max_iters 256 and 2 — every output
-   lane and time bit-identical; K2 at the cluster size its chooser picks
-   and at every size it allows for the stream (forced through the
-   wrapper's ``cluster`` keyword), K1 at the shape its chooser picks and
-   at every shape it allows (``shape`` keyword); K1's certificate equal
-   to the host ``verify_rows`` on converged rows;
+   gemm, FeedForward, k15mmseq and k15mmtree; at batches 1, 8, 37, 128
+   (the bucket of ``nsga2``'s batches) and 512, with and without times,
+   at max_iters 256 and 2 — every output lane and time bit-identical;
+   K2 at the cluster size its chooser picks and at every size it allows
+   for the stream (forced through the wrapper's ``cluster`` keyword), K1
+   at the shape its chooser picks and at every shape it allows
+   (``shape`` keyword); K1's certificate equal to the host
+   ``verify_rows`` on converged rows;
 4. the main path: ``FifoAdvisor(design, EvalConfig(backend="cuda")).run(
    "grouped_sa", budget=1000, seed=0)`` on gemm, FeedForward and
    k15mmtree, whose history, frontier and hypervolume must equal the
@@ -31,18 +32,35 @@ Phases, each printing JSON lines (any failure raises and exits nonzero):
    backend's on the card; every launch counter is set to 0 just before
    and read just after, and both kernels must have launched (K2's
    launches also by cluster size, K1's by rows per launch);
-5. times: each kernel and its plain version, warm, beside the bound (the
+5. certification and search: on gemm, FeedForward, k15mmtree and
+   ``flowgnn_pna()``, ``FifoAdvisor(design, EvalConfig(backend="cuda",
+   local_bounds=True, channel_bounds=True, certified_floor=True))`` —
+   its construction certifies (seeded by the channel bounds) — then
+   unseeded ``certify_min_depths``, the seeded certification from the
+   declared depth caps (what ``min_safe_depths`` does for
+   ``FifoAdvisor(upper_bounds=...)``), and ``run(name, budget=1000,
+   seed=0)`` for ``greedy``, ``nsga2`` and ``vmap_search``, plus
+   ``run_all()`` on gemm: certified vectors, ``CertificationResult``
+   fields, channel bounds, histories, frontiers and hypervolumes must
+   equal the numpy backend's; ``mult_by_2(n)`` must certify to ``[n-1,
+   1]``.  Counters are set to 0 around every step (K1 and K2 launches by
+   rows per launch, the evaluator's rung counts), each step must launch a
+   kernel, and both kernels must have launched during certification and
+   during ``vmap_search``; each step's wall is printed beside numpy's;
+6. times: each kernel and its plain version, warm, beside the bound (the
    larger of bytes over 3.35 TB/s and float32 operations over 67
    TFLOP/s).  K2 with CUDA events at the 512-row bucket per design (also
    on ResidualBlock's aggressive rung, with times) and at the main path's
-   shape: 8 rows below the box's floor on FeedForward and k15mmtree, with
+   shape: 8 rows below the box's floor on FeedForward and k15mmtree, and
+   at phase 5's: one certification probe on each of its designs, with
    the time per iteration of the slowest row, the chosen cluster and how
    many clusters of each allowed size the card holds at once.  K1 as a
    CUDA graph of 20 launches (no host overhead) at the main path's 1 and
    8 rows and at the 512-row bucket, each also at max_iters 1 (the
    difference is the iterations after the first);
-6. where the main path's time goes: each design's ``grouped_sa`` run
-   again under ``torch.profiler`` (wall, device busy time, idle share);
+7. where the time goes: each design's ``grouped_sa`` run again, and
+   phase 5's steps on a fresh advisor per design, under
+   ``torch.profiler`` (wall, device busy time, idle share);
 
 then the ``{"kernels": [...]}`` line, the ``nvidia-smi`` line, and last
 ``{"ok": true, "device": {...}}``.  Without a CUDA device, or outside a
@@ -78,7 +96,7 @@ K2_RUNGS = (("ResidualBlock", "aggressive"), ("ResidualBlock", "safe"),
             ("gemm", "safe"), ("FeedForward", "safe"), ("k15mmtree", "safe"))
 K1_DESIGNS = ("gemm", "FeedForward", "k15mmseq", "k15mmtree")
 MAIN_DESIGNS = ("gemm", "FeedForward", "k15mmtree")
-BATCHES = (1, 8, 37, 512)
+BATCHES = (1, 8, 37, 128, 512)
 #: the main path's K2 shape: grouped_sa's batches of at most 8 rows,
 #: padded to the 8-row bucket, mostly below the routing box's floor
 MAIN_ROWS = 8
@@ -89,6 +107,12 @@ K1_MAIN_ROWS = (1, 8)
 #: launches per CUDA graph when a kernel is timed without host overhead
 GRAPH_REPS = 20
 BUDGET = 1000
+#: phase 5: the designs, the optimizers and the pruning flags
+CERT_DESIGNS = ("gemm", "FeedForward", "k15mmtree", "flowgnn_pna")
+SEARCH_OPTIMIZERS = ("greedy", "nsga2", "vmap_search")
+PRUNING = {"local_bounds": True, "channel_bounds": True,
+           "certified_floor": True}
+KNOWN_ANSWER_N = (8, 24, 64)
 
 _out_file = None
 
@@ -137,8 +161,7 @@ def low_rows(g, c: int, seed: int):
 @functools.lru_cache(maxsize=None)
 def raw_graph(name: str):
     from repro_torch.core.simgraph import build_simgraph
-    from repro_torch.designs import make_design
-    return build_simgraph(make_design(name))
+    return build_simgraph(design_of(name))
 
 
 @functools.lru_cache(maxsize=None)
@@ -329,6 +352,7 @@ def reset_counts():
     from repro_torch.kernels.fifo_eval import condensed, fifo_eval, ops
     fifo_eval.fifo_eval.launches = 0
     fifo_eval.fifo_eval.clusters = {}
+    fifo_eval.fifo_eval.rows = {}
     condensed.fifo_eval_condensed.launches = 0
     condensed.fifo_eval_condensed.rows = {}
     ops.DISPATCH_COUNTS.clear()
@@ -338,6 +362,7 @@ def read_counts() -> dict:
     from repro_torch.kernels.fifo_eval import condensed, fifo_eval, ops
     return {"fifo_eval": fifo_eval.fifo_eval.launches,
             "fifo_eval_clusters": dict(fifo_eval.fifo_eval.clusters),
+            "fifo_eval_rows": dict(fifo_eval.fifo_eval.rows),
             "fifo_eval_condensed":
                 condensed.fifo_eval_condensed.launches,
             "fifo_eval_condensed_rows":
@@ -456,6 +481,181 @@ def main_path(dev) -> dict:
     return totals, k1_rows
 
 
+# ----------------------------------------------- certification and search
+def design_of(name: str):
+    from repro_torch.designs import flowgnn_pna, make_design
+    return flowgnn_pna() if name == "flowgnn_pna" else make_design(name)
+
+
+def run_step(fn):
+    """``fn()`` with every launch counter set to 0 just before and read
+    just after: (result, wall seconds, counts)."""
+    import torch
+    reset_counts()
+    t0 = time.perf_counter()
+    out = fn()
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    return out, wall, read_counts()
+
+
+def wall_of(fn):
+    t0 = time.perf_counter()
+    out = fn()
+    return out, time.perf_counter() - t0
+
+
+def same_cert(label: str, got, want) -> None:
+    import numpy as np
+    for k in ("depths", "latency", "bram", "n_probes", "n_cache_hits"):
+        if not np.array_equal(getattr(got, k), getattr(want, k)):
+            raise AssertionError(f"{label}: certification {k} "
+                                 f"{getattr(got, k)} on cuda, "
+                                 f"{getattr(want, k)} on numpy")
+
+
+def same_search(label: str, got, want) -> None:
+    import numpy as np
+    for k in ("configs", "latency", "bram", "deadlock"):
+        if not np.array_equal(getattr(got.result, k),
+                              getattr(want.result, k)):
+            raise AssertionError(f"{label}: history {k} differs from the "
+                                 f"numpy backend")
+    if got.result.n_evals != want.result.n_evals \
+            or not np.array_equal(got.frontier_points, want.frontier_points) \
+            or not np.array_equal(got.frontier_configs,
+                                  want.frontier_configs) \
+            or got.hypervolume() != want.hypervolume():
+        raise AssertionError(f"{label}: frontier differs from the numpy "
+                             f"backend")
+
+
+def certify_search() -> dict:
+    """Phase 5: certification, bounds and the remaining optimizers on the
+    card against the numpy backend.  Returns, per kernel, the phase's
+    launches and its launches by rows per launch."""
+    import numpy as np
+    from repro_torch.core import EvalConfig, FifoAdvisor
+    from repro_torch.core.deadlock import certify_min_depths
+    from repro_torch.designs import mult_by_2
+    kernels = ("fifo_eval", "fifo_eval_condensed")
+    by_kind = {kind: dict.fromkeys(kernels, 0)
+               for kind in ("construct", "certify", "search", "vmap_search")}
+    rows = {k: {} for k in kernels}
+
+    def record(name, step, kind, wall, counts, evals, ref_wall, ev, before,
+               **extra):
+        launches = {k: counts[k] for k in kernels}
+        if not sum(launches.values()):
+            raise AssertionError(f"{name} {step}: no kernel launched")
+        for k in kernels:
+            by_kind[kind][k] += launches[k]
+            if step == "vmap_search":
+                by_kind["vmap_search"][k] += launches[k]
+        for k, key in (("fifo_eval", "fifo_eval_rows"),
+                       ("fifo_eval_condensed", "fifo_eval_condensed_rows")):
+            for c, n in counts[key].items():
+                rows[k][c] = rows[k].get(c, 0) + n
+        st = ev.stats
+        emit({"phase": "certify_search", "design": name, "step": step,
+              "evals": evals, "wall_s": wall,
+              "evals_per_s": evals / wall, "numpy_wall_s": ref_wall,
+              "equal_to_numpy": True, "launches": launches,
+              "fifo_eval_launches_by_rows": counts["fifo_eval_rows"],
+              "fifo_eval_launches_by_cluster": counts["fifo_eval_clusters"],
+              "fifo_eval_condensed_launches_by_rows":
+                  counts["fifo_eval_condensed_rows"],
+              **{k: getattr(st, k) - before[k] for k in before}, **extra})
+
+    stat_keys = ("n_configs", "n_condensed", "n_cond_fail", "n_fallbacks")
+
+    def stats_of(ev):
+        return {k: getattr(ev.stats, k) for k in stat_keys}
+
+    cuda = EvalConfig(backend="cuda", **PRUNING)
+    numpy_cfg = EvalConfig(backend="numpy", **PRUNING)
+    for name in CERT_DESIGNS:
+        # construction certifies (certified_floor), seeded by the bounds
+        before = dict.fromkeys(stat_keys, 0)
+        adv, wall, counts = run_step(
+            lambda: FifoAdvisor(design_of(name), cuda))
+        ref, ref_wall = wall_of(
+            lambda: FifoAdvisor(design_of(name), numpy_cfg))
+        if not np.array_equal(adv.min_safe_depths(), ref.min_safe_depths()):
+            raise AssertionError(f"{name}: min_safe_depths differs")
+        same_cert(name, adv.certification, ref.certification)
+        cb, ref_cb = adv.channel_bounds(), ref.channel_bounds()
+        if not (np.array_equal(cb.lower, ref_cb.lower)
+                and np.array_equal(cb.upper, ref_cb.upper)
+                and cb.kinds == ref_cb.kinds):
+            raise AssertionError(f"{name}: channel bounds differ")
+        cert = adv.certification
+        record(name, "construct_and_certify", "construct", wall, counts,
+               cert.n_probes, ref_wall, adv.evaluator, before,
+               n_probes=cert.n_probes, n_cache_hits=cert.n_cache_hits,
+               certify_wall_s=cert.wall_s,
+               numpy_certify_wall_s=ref.certification.wall_s,
+               n_pinned=cb.n_pinned, depths_sum=int(cert.depths.sum()),
+               rungs=adv.evaluator.condensation_info())
+        caps = np.asarray(adv.graph.upper_bounds, dtype=np.int64)
+        for step, kw, ref_kw in (
+                ("certify_unseeded", {}, {}),
+                ("certify_from_caps", {"upper": caps, "bounds": cb},
+                 {"upper": caps, "bounds": ref_cb})):
+            before = stats_of(adv.evaluator)
+            got, wall, counts = run_step(lambda: certify_min_depths(
+                adv.graph, adv.evaluator, **kw))
+            want, ref_wall = wall_of(lambda: certify_min_depths(
+                ref.graph, ref.evaluator, **ref_kw))
+            same_cert(f"{name} {step}", got, want)
+            if step == "certify_unseeded" and not np.array_equal(
+                    got.depths, adv.min_safe_depths()):
+                raise AssertionError(f"{name}: unseeded certification "
+                                     f"differs from the seeded one")
+            record(name, step, "certify", wall, counts, got.n_probes,
+                   ref_wall, adv.evaluator, before, n_probes=got.n_probes)
+        for opt in SEARCH_OPTIMIZERS:
+            before = stats_of(adv.evaluator)
+            res, wall, counts = run_step(
+                lambda: adv.run(opt, budget=BUDGET, seed=0))
+            want, ref_wall = wall_of(
+                lambda: ref.run(opt, budget=BUDGET, seed=0))
+            same_search(f"{name} {opt}", res, want)
+            record(name, opt, "search", wall, counts, res.result.n_evals,
+                   ref_wall, adv.evaluator, before,
+                   hypervolume=res.hypervolume(),
+                   frontier_points=res.frontier_points.tolist())
+        if name == "gemm":
+            before = stats_of(adv.evaluator)
+            got, wall, counts = run_step(lambda: adv.run_all())
+            want, ref_wall = wall_of(lambda: ref.run_all())
+            if list(got) != list(want):
+                raise AssertionError("gemm run_all: optimizers differ")
+            for k in got:
+                same_search(f"gemm run_all {k}", got[k], want[k])
+            record(name, "run_all", "search", wall, counts,
+                   sum(r.result.n_evals for r in got.values()), ref_wall,
+                   adv.evaluator, before, optimizers=list(got))
+    for n in KNOWN_ANSWER_N:
+        got = FifoAdvisor(mult_by_2(n), EvalConfig(backend="cuda")
+                          ).min_safe_depths().tolist()
+        if got != [n - 1, 1]:
+            raise AssertionError(f"mult_by_2({n}) certified to {got}")
+        emit({"phase": "certify_search", "design": f"mult_by_2({n})",
+              "step": "known_answer", "certified": got, "equal": True})
+    # the certification steps proper (construction also evaluates the
+    # baselines) and vmap_search must have run both kernels
+    for kind in ("certify", "vmap_search"):
+        for k in kernels:
+            if by_kind[kind][k] == 0:
+                raise AssertionError(f"{k} never launched during {kind}")
+    emit({"phase": "certify_search_launches", "by_kind": by_kind,
+          "by_rows": rows})
+    return {k: {"launches": sum(by_kind[kind][k] for kind in
+                                ("construct", "certify", "search")),
+                "by_rows": rows[k]} for k in kernels}
+
+
 # ------------------------------------------------------------------ timing
 def cuda_ms(fn, reps: int) -> float:
     import torch
@@ -504,40 +704,68 @@ def bound_ms(args, out, times=None, cert_slots: int = 0):
     return (t_bytes, "bytes") if t_bytes >= t_ops else (t_ops, "operations")
 
 
-def profile_main_path() -> None:
-    """Where the main path's time goes: one fresh ``grouped_sa`` run per
-    design (trace, condensation and search) under ``torch.profiler``;
-    device busy time is the sum of the device-side activities it records
-    (kernels and copies)."""
+def profiled(fn):
+    """``fn()`` under ``torch.profiler``: (result, wall seconds, device
+    busy seconds or None, the six largest device entries in µs).  Device
+    busy time is the sum of the device-side activities the profiler
+    records (kernels and copies): an aten op's own entry also carries the
+    time of the kernels it launched, so only device entries count."""
     import torch
     from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        t0 = time.perf_counter()
+        out = fn()
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t0
+    by_name = {}
+    for e in prof.key_averages():
+        us = getattr(e, "self_device_time_total", 0) or 0
+        if us > 0 and e.device_type == DeviceType.CUDA:
+            by_name[e.key] = by_name.get(e.key, 0) + us
+    busy = sum(by_name.values()) / 1e6
+    top = sorted(by_name.items(), key=lambda kv: -kv[1])[:6]
+    return out, wall, (busy if busy > 0 else None), \
+        {k[:60]: v for k, v in top}
+
+
+def emit_profile(design: str, step: str, wall: float, busy, top) -> None:
+    # a trace with no device activity is a gap of the profiler, not of
+    # the path (the launch counters of phases 4 and 5 show the kernels ran)
+    emit({"phase": "profile", "design": design, "step": step,
+          "wall_s": wall,
+          "device_busy_s": busy if busy is not None else "not measured",
+          "device_idle_share": (1 - busy / wall) if busy is not None
+          else "not measured", "top_device_us": top})
+
+
+def profile_paths() -> None:
+    """Where the time goes: one fresh ``grouped_sa`` run per main-path
+    design (trace, condensation and search), then phase 5's steps on a
+    fresh advisor per design (construction with its certification,
+    unseeded certification, ``greedy``, ``nsga2``, ``vmap_search``), each
+    under ``torch.profiler``."""
     from repro_torch.core import EvalConfig, FifoAdvisor
+    from repro_torch.core.deadlock import certify_min_depths
     from repro_torch.designs import make_design
     for name in MAIN_DESIGNS:
-        with profile(activities=[ProfilerActivity.CPU,
-                                 ProfilerActivity.CUDA]) as prof:
-            t0 = time.perf_counter()
-            FifoAdvisor(make_design(name), EvalConfig(backend="cuda")
-                        ).run("grouped_sa", budget=BUDGET, seed=0)
-            torch.cuda.synchronize()
-            wall = time.perf_counter() - t0
-        # device-side entries only: an aten op's own entry also carries
-        # the time of the kernels it launched
-        by_name = {}
-        for e in prof.key_averages():
-            us = getattr(e, "self_device_time_total", 0) or 0
-            if us > 0 and e.device_type == DeviceType.CUDA:
-                by_name[e.key] = by_name.get(e.key, 0) + us
-        busy = sum(by_name.values()) / 1e6
-        top = sorted(by_name.items(), key=lambda kv: -kv[1])[:6]
-        # a trace with no device activity is a gap of the profiler, not of
-        # the path (the launch counters of phase 4 show the kernels ran)
-        emit({"phase": "profile", "design": name, "wall_s": wall,
-              "device_busy_s": busy if busy > 0 else "not measured",
-              "device_idle_share": (1 - busy / wall) if busy > 0
-              else "not measured",
-              "top_device_us": {k[:60]: v for k, v in top}})
+        _, wall, busy, top = profiled(lambda: FifoAdvisor(
+            make_design(name), EvalConfig(backend="cuda")).run(
+                "grouped_sa", budget=BUDGET, seed=0))
+        emit_profile(name, "grouped_sa", wall, busy, top)
+    cuda = EvalConfig(backend="cuda", **PRUNING)
+    for name in CERT_DESIGNS:
+        adv, wall, busy, top = profiled(
+            lambda: FifoAdvisor(design_of(name), cuda))
+        emit_profile(name, "construct_and_certify", wall, busy, top)
+        _, wall, busy, top = profiled(
+            lambda: certify_min_depths(adv.graph, adv.evaluator))
+        emit_profile(name, "certify_unseeded", wall, busy, top)
+        for opt in SEARCH_OPTIMIZERS:
+            _, wall, busy, top = profiled(
+                lambda: adv.run(opt, budget=BUDGET, seed=0))
+            emit_profile(name, opt, wall, busy, top)
 
 
 def timings(dev) -> dict:
@@ -548,6 +776,7 @@ def timings(dev) -> dict:
                                                          launch_shape)
     from repro_torch.kernels.fifo_eval.ref import (fifo_eval_condensed_plain,
                                                    fifo_eval_plain)
+    import numpy as np
     rows_out = {"fifo_eval": [], "fifo_eval_condensed": []}
     # (shape, label, graph, rows, with_times): the main path's 8-row
     # batches below the box's floor, then the 512-row bucket
@@ -560,6 +789,11 @@ def timings(dev) -> dict:
     cg = rung("ResidualBlock", "aggressive")
     k2_cases.append(("bucket", "ResidualBlock/aggressive", cg,
                      box_rows(cg, 512, seed=0), True))
+    # phase 5's shape: one certification probe, the unseeded descent's
+    # start row (max(max_occupancy, 1))
+    k2_cases += [("cert_probe", name, raw_graph(name),
+                  np.maximum(raw_graph(name).max_occupancy, 1)[None, :]
+                  .astype(np.int32), False) for name in CERT_DESIGNS]
     for shape, label, g, rows, with_times in k2_cases:
         args, _, bound = kernel_args(g, rows, dev, cert=False)
         kw = dict(max_iters=256, bound=bound, with_times=with_times)
@@ -688,8 +922,13 @@ def run() -> int:
     emit({"phase": "main_path_done",
           "seconds": round(time.perf_counter() - t0, 3)})
 
+    t0 = time.perf_counter()
+    cert_search = certify_search()
+    emit({"phase": "certify_search_done",
+          "seconds": round(time.perf_counter() - t0, 3)})
+
     times = timings(dev)
-    profile_main_path()
+    profile_paths()
     sources = {"fifo_eval": ("src/repro_torch/csrc/fifo_eval.cu",
                              "src/repro/kernels/fifo_eval/fifo_eval.py:49"),
                "fifo_eval_condensed": (
@@ -699,7 +938,7 @@ def run() -> int:
     for name, (source, replaces) in sources.items():
         # the reported time is the slowest design's 512-row bucket; every
         # design's numbers are in the "time" lines above
-        worst = max((r for r in times[name] if r.get("shape") != "main_path"),
+        worst = max((r for r in times[name] if r.get("shape") == "bucket"),
                     key=lambda r: r["ms"])
         extra = {}
         if name == "fifo_eval_condensed":
@@ -718,10 +957,13 @@ def run() -> int:
                     "bound_ms", "bound_by")
             extra = {"cluster": worst["cluster"], "shapes": [
                 {k: r[k] for k in keys} for r in times[name]
-                if r["shape"] == "main_path" or r is worst]}
+                if r["shape"] in ("main_path", "cert_probe")
+                or r is worst]}
         kernels.append({
             "name": name, "route": "cuda", "source": source,
             "replaces": replaces, "launches": launches[name],
+            "cert_search_launches": cert_search[name]["launches"],
+            "cert_search_launches_by_rows": cert_search[name]["by_rows"],
             "max_abs_err": cmp.err.get(name, 0.0), "ms": worst["ms"],
             "plain_ms": worst["plain_ms"], "bound_ms": worst["bound_ms"],
             "bound_by": worst["bound_by"], "library_ms": None,

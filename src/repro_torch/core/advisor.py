@@ -138,10 +138,6 @@ class FifoAdvisor:
         device: the torch device of the tensor backends; ``None`` means
             CUDA and raises without a card (pass ``"cpu"`` to run the
             plain torch versions on the CPU).
-
-    The reference's ``min_safe_depths``, ``channel_bounds``,
-    ``explain_deadlock``, ``restore`` and ``run_all`` are not ported yet
-    (ROADMAP P7, P8, P12).
     """
 
     def __init__(self, design: Design, config: Optional[EvalConfig] = None,
@@ -159,11 +155,52 @@ class FifoAdvisor:
         self.cache = ConfigCache(self.graph.n_fifos)
         self.trace_time_s = time.perf_counter() - t0
         self._upper_bounds = upper_bounds
+        self._certification = None   # cached CertificationResult
+        self._lb_cache: Optional[np.ndarray] = None
+        self._channel_bounds = None  # cached ChannelBounds
         self._incr_base: Optional[np.ndarray] = None
         # Shared baselines (evaluated outside any optimizer's budget).
         ctx = self._fresh_ctx(seed=0)
         self.baseline_max = self._baseline(ctx.baseline_max())
         self.baseline_min = self._baseline(ctx.baseline_min())
+
+    @classmethod
+    def restore(cls, design: Design, *, trace: Trace, graph: SimGraph,
+                config: EvalConfig, upper_bounds=None, rungs=None,
+                baseline_max: "Baseline", baseline_min: "Baseline",
+                certification=None, lb_cache=None,
+                cache_data=None, device=None) -> "FifoAdvisor":
+        """Rebuild an advisor from previously computed parts.
+
+        The warm-restart constructor: the expensive artifacts — trace,
+        simgraph, condensation ``rungs``, deadlock ``certification``,
+        and the evaluation-cache contents (``cache_data`` = ``(rows,
+        lat, bram, dead)`` in insertion order) — are handed in instead
+        of recomputed, so construction is milliseconds.  A restored
+        advisor is bit-identical to a freshly traced one in everything
+        observable but wall-clock (``trace_time_s`` records the restore
+        time) and ``n_evals`` (cache hits are not re-simulated).
+        """
+        t0 = time.perf_counter()
+        self = cls.__new__(cls)
+        self.config = config
+        self.design = design
+        self.trace = trace
+        self.graph = graph
+        self.evaluator = BatchedEvaluator(graph, config, rungs=rungs,
+                                          device=device)
+        self.cache = ConfigCache(graph.n_fifos)
+        if cache_data is not None:
+            self.cache.load_rows(*cache_data)
+        self._upper_bounds = upper_bounds
+        self._certification = certification
+        self._lb_cache = lb_cache
+        self._channel_bounds = None
+        self._incr_base = None
+        self.baseline_max = baseline_max
+        self.baseline_min = baseline_min
+        self.trace_time_s = time.perf_counter() - t0
+        return self
 
     def make_context(self, seed: int = 0) -> EvalContext:
         """A fresh :class:`EvalContext` sharing this advisor's evaluator,
@@ -172,10 +209,27 @@ class FifoAdvisor:
         return self._fresh_ctx(seed)
 
     def _fresh_ctx(self, seed: int) -> EvalContext:
+        cfg = self.config
+        if cfg.local_bounds and self._lb_cache is None:
+            from repro_torch.core.prune import local_lower_bounds
+            base = EvalContext(self.graph, self.evaluator,
+                               upper_bounds=self._upper_bounds,
+                               occupancy_cap=cfg.occupancy_cap, seed=0)
+            self._lb_cache = local_lower_bounds(self.graph, base.candidates)
+        lb = self._lb_cache
+        if cfg.channel_bounds:
+            # Analytical lower bounds are sound the same way local
+            # bounds are: below them every configuration deadlocks, so
+            # pruning those candidates never loses a feasible point.
+            analytical = self.channel_bounds().lower
+            lb = analytical if lb is None else np.maximum(lb, analytical)
+        floor = self.min_safe_depths() if cfg.certified_floor else None
         return EvalContext(self.graph, self.evaluator,
                            upper_bounds=self._upper_bounds,
-                           occupancy_cap=self.config.occupancy_cap,
-                           seed=seed, cache=self.cache)
+                           occupancy_cap=cfg.occupancy_cap,
+                           lower_bounds=lb,
+                           feasible_floor=floor, seed=seed,
+                           cache=self.cache)
 
     def _baseline(self, depths: np.ndarray) -> Baseline:
         m = np.asarray(depths, dtype=np.int64)[None, :]
@@ -203,6 +257,66 @@ class FifoAdvisor:
         self._incr_base = depths.copy()
         return int(lat[0]), bool(dead[0])
 
+    def channel_bounds(self):
+        """Analytical per-channel depth bounds + taxonomy for this design.
+
+        One O(E·F) static pass over the packed trace
+        (:func:`repro_torch.core.bounds.channel_bounds`): classifies every
+        FIFO (in-order rate-matched / rate-mismatched / reorder /
+        data-dependent) and derives sound closed-form ``(lower, upper)``
+        bounds that bracket the certified minimal depths.  Computed once
+        per advisor; :meth:`min_safe_depths` seeds certification with it
+        (same certified vector, a fraction of the probes), and
+        ``EvalConfig(channel_bounds=True)`` clamps every optimizer's
+        candidate grids with the lower bounds.
+        """
+        if self._channel_bounds is None:
+            from repro_torch.core.bounds import channel_bounds
+            self._channel_bounds = channel_bounds(self.graph)
+        return self._channel_bounds
+
+    def min_safe_depths(self) -> np.ndarray:
+        """Certified minimal deadlock-free depths (coordinate-wise).
+
+        The returned vector is verified deadlock-free and no single FIFO
+        can be lowered below it without deadlocking; any configuration at
+        or above it *everywhere* is deadlock-free by depth monotonicity,
+        so optimizers can clamp their candidate grids with it
+        (``certified_floor=True``).
+
+        Computed once per advisor by monotone binary search through this
+        advisor's evaluator and cache
+        (:func:`repro_torch.core.deadlock.certify_min_depths`), seeded by
+        the analytical :meth:`channel_bounds` (identical vector, typically
+        a fraction of the probes); subsequent calls return the cached
+        vector.  When the advisor was built with explicit
+        ``upper_bounds``, certification descends from them (so the
+        certificate respects the caps) — and raises ``ValueError`` when
+        no deadlock-free configuration exists under those caps.
+        """
+        if self._certification is None:
+            from repro_torch.core.deadlock import certify_min_depths
+            self._certification = certify_min_depths(
+                self.graph, self.evaluator, cache=self.cache,
+                upper=self._upper_bounds, bounds=self.channel_bounds())
+        return self._certification.depths.copy()
+
+    @property
+    def certification(self):
+        """The full :class:`~repro_torch.core.deadlock.CertificationResult`
+        behind :meth:`min_safe_depths` (None until first computed)."""
+        return self._certification
+
+    def explain_deadlock(self, depths: np.ndarray):
+        """Diagnose one configuration: run the DES oracle at ``depths``
+        and return its :class:`~repro_torch.core.deadlock.WaitForGraph`
+        (``.blame()`` names the FIFOs on the blocking cycle; the graph
+        is empty when the configuration is deadlock-free)."""
+        from repro_torch.core.deadlock import extract_wait_graph
+        from repro_torch.core.oracle import simulate
+        result = simulate(self.design, np.asarray(depths, dtype=np.int64))
+        return extract_wait_graph(self.design, result, trace=self.trace)
+
     def cache_stats(self):
         """Shared evaluation-cache statistics for this advisor session."""
         return self.cache.stats
@@ -224,3 +338,11 @@ class FifoAdvisor:
                          result=res, baseline_max=self.baseline_max,
                          baseline_min=self.baseline_min,
                          trace_time_s=self.trace_time_s)
+
+    def run_all(self, optimizers=None, budget: int = 1000,
+                seed: int = 0) -> Dict[str, DseResult]:
+        """Run several optimizers back to back (default: the paper's
+        five) and return ``{name: DseResult}``."""
+        from repro_torch.core.optimizers import PAPER_OPTIMIZERS
+        names = optimizers or PAPER_OPTIMIZERS
+        return {n: self.run(n, budget=budget, seed=seed) for n in names}

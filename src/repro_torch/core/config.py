@@ -10,9 +10,8 @@ the torch ``device`` and per-design ``upper_bounds`` arrays on
 ``FifoAdvisor``, prebuilt ``CondensedGraph`` rung lists (``rungs=``) on
 ``BatchedEvaluator``.
 
-The flags whose machinery is not ported yet (``local_bounds``,
-``channel_bounds``, ``certified_floor``, ``shards``, ``faults``) keep
-their fields so reference configs round-trip, but raise
+The fields whose machinery is not ported yet (``shards``, ``faults``)
+are kept so reference configs round-trip, but raise
 ``NotImplementedError`` when set.
 """
 
@@ -25,9 +24,6 @@ __all__ = ["EvalConfig"]
 
 #: field -> (value that means "off", ROADMAP item that ports it)
 _NOT_PORTED = {
-    "local_bounds": (False, "P7 (core/prune.py)"),
-    "channel_bounds": (False, "P8 (core/bounds.py)"),
-    "certified_floor": (False, "P8 (core/deadlock/certify.py)"),
     "shards": (None, "P11 (multi-device row sharding)"),
     "faults": (None, "P12 (core/faults.py)"),
 }
@@ -48,8 +44,17 @@ class EvalConfig:
             disables it.
         occupancy_cap: collapse candidates above observed occupancy
             (behaviour-preserving pruning).
-        local_bounds, channel_bounds, certified_floor, shards, faults:
-            reference fields, not ported yet (must stay off).
+        local_bounds: sound per-FIFO lower bounds from task-pair
+            feasibility (:mod:`repro_torch.core.prune`).
+        channel_bounds: sound per-FIFO lower bounds from the analytical
+            channel-bounds pass (:mod:`repro_torch.core.bounds`) —
+            strictly more global than ``local_bounds`` (it follows
+            transitive cross-task coupling) and free once the design is
+            traced.
+        certified_floor: clamp every candidate grid at the certified
+            minimal deadlock-free depths (``FifoAdvisor.min_safe_depths``).
+        shards, faults: reference fields, not ported yet (must stay
+            off).
     """
 
     backend: str = "cuda"

@@ -24,9 +24,8 @@ The same generator is driven by two independent engines:
 * :mod:`repro_torch.core.tracer` — HLS *sequential semantics* (tasks run to
   completion in declaration order against unbounded FIFOs) to collect the
   event trace, and
-* ``core/oracle.py`` of the reference package (not ported yet) — a
-  cycle-accurate discrete-event simulation against *bounded* FIFOs (the
-  stand-in for RTL co-simulation).
+* :mod:`repro_torch.core.oracle` — a cycle-accurate discrete-event
+  simulation against *bounded* FIFOs (the stand-in for RTL co-simulation).
 """
 
 from __future__ import annotations
@@ -105,7 +104,7 @@ class Task:
     ``data_dependent`` marks tasks whose FIFO access *pattern* (op counts
     or interleaving) depends on values read from FIFOs or on kernel
     arguments — the paper's DDCF processes.  The static channel-bounds
-    pass (``core/bounds.py``, not ported yet) treats every FIFO touched by
+    pass (:mod:`repro_torch.core.bounds`) treats every FIFO touched by
     such a task as instance-specific: its trace-derived bounds still hold for
     the traced argument values, but are not closed-form over all inputs.
     """

@@ -1,8 +1,4 @@
-"""FIFOAdvisor optimizers (paper §III-D) ported so far.
-
-The reference's ``greedy``, ``nsga2`` and ``vmap_search`` wait for ROADMAP
-P7.
-"""
+"""FIFOAdvisor optimizer zoo (paper §III-D + beyond-paper additions)."""
 
 from repro_torch.core.optimizers.base import (EvalContext, EvalRequest,
                                               Optimizer, OptResult)
@@ -10,16 +6,25 @@ from repro_torch.core.optimizers.random_search import (GroupedRandomSearch,
                                                        RandomSearch)
 from repro_torch.core.optimizers.annealing import (GroupedSimulatedAnnealing,
                                                    SimulatedAnnealing)
+from repro_torch.core.optimizers.greedy import GreedySearch
+from repro_torch.core.optimizers.nsga2 import NSGA2
+from repro_torch.core.optimizers.vmap_search import VmapSearch
 
 OPTIMIZERS = {
     "random": RandomSearch,
     "grouped_random": GroupedRandomSearch,
     "sa": SimulatedAnnealing,
     "grouped_sa": GroupedSimulatedAnnealing,
+    "greedy": GreedySearch,
+    "nsga2": NSGA2,
+    "vmap_search": VmapSearch,
 }
+
+PAPER_OPTIMIZERS = ("greedy", "random", "grouped_random", "sa", "grouped_sa")
 
 __all__ = [
     "EvalContext", "EvalRequest", "Optimizer", "OptResult", "OPTIMIZERS",
-    "RandomSearch", "GroupedRandomSearch", "SimulatedAnnealing",
-    "GroupedSimulatedAnnealing",
+    "PAPER_OPTIMIZERS", "RandomSearch", "GroupedRandomSearch",
+    "SimulatedAnnealing", "GroupedSimulatedAnnealing", "GreedySearch",
+    "NSGA2", "VmapSearch",
 ]

@@ -13,8 +13,9 @@ Two drivers consume the generator:
   against the optimizer's own :class:`EvalContext` and returns the final
   :class:`OptResult`.
 * :meth:`Optimizer.propose` / :meth:`Optimizer.observe` — the stepwise
-  API; a scheduler (a campaign, ROADMAP P10) interleaves many optimizers
-  and routes their requests into shared, cross-design dispatches.
+  API; a scheduler interleaves many optimizers and routes their requests
+  into shared dispatches (the reference's campaigns do so across designs;
+  their port is ROADMAP P10).
 
 Both drivers see identical request/result sequences, so they produce
 identical histories and frontiers for the same seed.
@@ -138,9 +139,8 @@ class EvalContext:
         if local_bounds or lower_bounds is not None \
                 or feasible_floor is not None:
             if local_bounds and lower_bounds is None:
-                raise NotImplementedError(
-                    "local_bounds needs core/prune.py, which is not "
-                    "ported yet (ROADMAP P7)")
+                from repro_torch.core.prune import local_lower_bounds
+                lower_bounds = local_lower_bounds(g, self.candidates)
             lb = np.zeros(g.n_fifos, dtype=np.int64)
             if lower_bounds is not None:
                 lb = np.maximum(lb, np.asarray(lower_bounds,

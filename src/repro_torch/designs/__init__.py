@@ -1,12 +1,15 @@
-"""Benchmark dataflow designs (Stream-HLS-style kernels + DDCF designs).
-
-The reference's seeded random design generator (``generate.py``) waits
-for ROADMAP P9.
-"""
+"""Benchmark dataflow designs (Stream-HLS-style kernels + DDCF designs)
+plus the seeded random design generator."""
 
 from repro_torch.designs.streamhls import (FAST_DESIGNS, QUICK_DESIGNS,
                                            STREAMHLS_DESIGNS, make_design)
 from repro_torch.designs.ddcf import flowgnn_pna, mult_by_2
+from repro_torch.designs.generate import (DesignSpec, GeneratedDesign,
+                                          StageSpec, build_design,
+                                          generate_design, shrink_spec,
+                                          spec_from_seed)
 
-__all__ = ["FAST_DESIGNS", "QUICK_DESIGNS", "STREAMHLS_DESIGNS",
-           "flowgnn_pna", "make_design", "mult_by_2"]
+__all__ = ["DesignSpec", "FAST_DESIGNS", "GeneratedDesign", "QUICK_DESIGNS",
+           "STREAMHLS_DESIGNS", "StageSpec", "build_design", "flowgnn_pna",
+           "generate_design", "make_design", "mult_by_2", "shrink_spec",
+           "spec_from_seed"]

@@ -214,6 +214,7 @@ def fifo_eval(delta, segst, is_read, has_data, data_idx, end_bonus,
     build.check(rc, "fifo_eval")
     fifo_eval.launches += 1
     fifo_eval.clusters[n_cl] = fifo_eval.clusters.get(n_cl, 0) + 1
+    fifo_eval.rows[C] = fifo_eval.rows.get(C, 0) + 1
     return out, times
 
 
@@ -221,3 +222,5 @@ def fifo_eval(delta, segst, is_read, has_data, data_idx, end_bonus,
 fifo_eval.launches = 0
 #: launches so far by cluster size (reset it by assigning {})
 fifo_eval.clusters = {}
+#: launches so far by rows per launch (reset it by assigning {})
+fifo_eval.rows = {}

@@ -108,10 +108,7 @@ def test_eval_config_round_trips():
     assert EvalConfig().backend == "cuda"
 
 
-@pytest.mark.parametrize("field,value", [
-    ("local_bounds", True), ("channel_bounds", True),
-    ("certified_floor", True), ("shards", 2), ("faults", "{}"),
-])
+@pytest.mark.parametrize("field,value", [("shards", 2), ("faults", "{}")])
 def test_eval_config_unported_flags_raise(field, value):
     with pytest.raises(NotImplementedError, match="ROADMAP"):
         EvalConfig(**{field: value})
