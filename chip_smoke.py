@@ -22,7 +22,12 @@ Phases, each printing JSON lines (any failure raises and exits nonzero):
    for the stream (forced through the wrapper's ``cluster`` keyword), K1
    at the shape its chooser picks and at every shape it allows
    (``shape`` keyword); K1's certificate equal to the host
-   ``verify_rows`` on converged rows;
+   ``verify_rows`` on converged rows; K2 in its per-design-table mode
+   (``fifo_eval_hetero``) on mixed batches of ``mult_by_2(8)``,
+   ``mult_by_2(24)``, gemm, FeedForward, k15mmtree and ResidualBlock rows
+   (1, 8, 37 and 128 rows) against the plain ``fifo_eval_ref_hetero``, at
+   the chooser's cluster and every allowed size; at max_iters 256 rows of
+   two designs (one in a 1-row batch) must stop on their own bound;
 4. the main path: ``FifoAdvisor(design, EvalConfig(backend="cuda")).run(
    "grouped_sa", budget=1000, seed=0)`` on gemm, FeedForward and
    k15mmtree, whose history, frontier and hypervolume must equal the
@@ -38,29 +43,52 @@ Phases, each printing JSON lines (any failure raises and exits nonzero):
    its construction certifies (seeded by the channel bounds) — then
    unseeded ``certify_min_depths``, the seeded certification from the
    declared depth caps (what ``min_safe_depths`` does for
-   ``FifoAdvisor(upper_bounds=...)``), and ``run(name, budget=1000,
+   ``FifoAdvisor(upper_bounds=...)``), and ``run(name, budget=300,
    seed=0)`` for ``greedy``, ``nsga2`` and ``vmap_search``, plus
-   ``run_all()`` on gemm: certified vectors, ``CertificationResult``
-   fields, channel bounds, histories, frontiers and hypervolumes must
-   equal the numpy backend's; ``mult_by_2(n)`` must certify to ``[n-1,
-   1]``.  Counters are set to 0 around every step (K1 and K2 launches by
-   rows per launch, the evaluator's rung counts), each step must launch a
-   kernel, and both kernels must have launched during certification and
-   during ``vmap_search``; each step's wall is printed beside numpy's;
-6. times: each kernel and its plain version, warm, beside the bound (the
+   ``run_all(budget=300)`` on gemm: certified vectors,
+   ``CertificationResult`` fields, channel bounds, histories, frontiers
+   and hypervolumes must equal the numpy backend's; ``mult_by_2(n)``
+   must certify to ``[n-1, 1]``.  Counters are set to 0 around every
+   step (K1 and K2 launches by rows per launch, the evaluator's rung
+   counts), each step must launch a kernel, and both kernels must have
+   launched during certification and during ``vmap_search``; each
+   step's wall is printed beside numpy's;
+6. campaigns (``Campaign(CampaignSpec(...)).run()``, ``grouped_sa`` and
+   ``grouped_random``, budget 300, seed 0): the hetero campaign over
+   ``FAST_DESIGNS`` (every full-solve row of a round in one K2 launch in
+   its per-design-table mode), the inline and the pooled (two workers,
+   ``spawn``) per-design campaigns over ``QUICK_DESIGNS``, and a hetero
+   campaign over ``QUICK_DESIGNS`` stopped after 3 rounds and resumed
+   from its checkpoint; each store equal, task for task, to the same
+   campaign on the numpy backend (history, frontier, hypervolume), each
+   wall beside numpy's; ``backend="auto"`` on gemm (chosen backend in
+   {numpy, cuda}, results equal to numpy's).  Counters are set to 0
+   around each campaign; the hetero campaign must launch K2 in its
+   per-design-table mode (launches by rows and by cluster, and the
+   dispatcher's ``HeteroStats``, are printed);
+7. the fuzz CLI, ``python -m repro_torch.launch.fuzz`` in a fresh process
+   per mode, over a temporary copy of ``tests/fuzz_corpus``: ``diff``
+   (oracle against worklist, condensed, cuda and cuda-condensed),
+   ``bounds`` and ``chaos``, each exiting 0;
+8. times: each kernel and its plain version, warm, beside the bound (the
    larger of bytes over 3.35 TB/s and float32 operations over 67
    TFLOP/s).  K2 with CUDA events at the 512-row bucket per design (also
    on ResidualBlock's aggressive rung, with times) and at the main path's
-   shape: 8 rows below the box's floor on FeedForward and k15mmtree, and
-   at phase 5's: one certification probe on each of its designs, with
-   the time per iteration of the slowest row, the chosen cluster and how
-   many clusters of each allowed size the card holds at once.  K1 as a
-   CUDA graph of 20 launches (no host overhead) at the main path's 1 and
-   8 rows and at the 512-row bucket, each also at max_iters 1 (the
+   shape: 8 rows below the box's floor on FeedForward and k15mmtree, at
+   phase 5's: one certification probe on each of its designs, and, in its
+   per-design-table mode, at phase 6's: the hetero campaign's most
+   frequent launch size, its mean rows per launch and the bucket they
+   pad to, over ``FAST_DESIGNS`` (the
+   bound counts each design's tables once and the per-row operands);
+   with the time per iteration of the slowest row, the chosen cluster and
+   how many clusters of each allowed size the card holds at once.  K1 as
+   a CUDA graph of 20 launches (no host overhead) at the main path's 1
+   and 8 rows and at the 512-row bucket, each also at max_iters 1 (the
    difference is the iterations after the first);
-7. where the time goes: each design's ``grouped_sa`` run again, and
-   phase 5's steps on a fresh advisor per design, under
-   ``torch.profiler`` (wall, device busy time, idle share);
+9. where the time goes: phase 6's hetero campaign, and on k15mmtree a
+   fresh ``grouped_sa`` run, unseeded certification and ``vmap_search``,
+   under ``torch.profiler`` (device activity only: wall, device busy
+   time, idle share);
 
 then the ``{"kernels": [...]}`` line, the ``nvidia-smi`` line, and last
 ``{"ok": true, "device": {...}}``.  Without a CUDA device, or outside a
@@ -91,6 +119,15 @@ OPS_PER_EVENT_ITER = 6
 OPS_PER_CERT_SLOT = 2
 
 K2_DESIGNS = ("gemm", "FeedForward", "k15mmtree")
+#: phase 3's mixed batches for K2's per-design-table mode; the two
+#: mult_by_2 designs come first and deadlock below depth n - 1, so rows
+#: with different bounds stop on them within 256 iterations
+HETERO_DESIGNS = ("mult_by_2(8)", "mult_by_2(24)", "gemm", "FeedForward",
+                  "k15mmtree", "ResidualBlock")
+HETERO_BATCHES = (1, 8, 37, 128)
+#: phase 6: the campaigns' optimizers and budget
+CAMPAIGN_OPTIMIZERS = ("grouped_sa", "grouped_random")
+CAMPAIGN_BUDGET = 300
 #: the rungs below FUSED_MIN_COMPRESSION that K2 serves with times
 K2_RUNGS = (("ResidualBlock", "aggressive"), ("ResidualBlock", "safe"),
             ("gemm", "safe"), ("FeedForward", "safe"), ("k15mmtree", "safe"))
@@ -109,7 +146,10 @@ GRAPH_REPS = 20
 BUDGET = 1000
 #: phase 5: the designs, the optimizers and the pruning flags
 CERT_DESIGNS = ("gemm", "FeedForward", "k15mmtree", "flowgnn_pna")
+#: phase 9: the designs whose main path and phase-5 steps are profiled
+PROFILE_DESIGNS = ("k15mmtree",)
 SEARCH_OPTIMIZERS = ("greedy", "nsga2", "vmap_search")
+SEARCH_BUDGET = 300
 PRUNING = {"local_bounds": True, "channel_bounds": True,
            "certified_floor": True}
 KNOWN_ANSWER_N = (8, 24, 64)
@@ -347,12 +387,113 @@ def check_k1(dev, cmp: Compare) -> None:
                           "max_iters_run": int(p_out[:, 3].max())})
 
 
+def hetero_batch(names, c: int, dev, seed: int = 0):
+    """A cross-design batch of ``c`` rows spread evenly over the raw
+    streams of designs ``names`` (each design's share half below the
+    routing box's floor, half inside it): ``(tables, table_of_row,
+    depths, operands)``, where ``operands`` are K2's per-row operands
+    ``(rd_lat, bp_idx, bp_valid)``, ``bounds`` (C,), the per-row
+    tables the plain version reads, and the device memory that
+    computing the per-row operands took at its peak (bytes, outputs
+    included)."""
+    import numpy as np
+    import torch
+    from repro_torch.core.backends import operands as O
+    graphs = [raw_graph(n) for n in names]
+    opses = [O.get_operands(g, "cpu") for g in graphs]
+    env = (max(o.e_pad for o in opses), max(o.n_fifos for o in opses),
+           max(o.n_flat_reads for o in opses))
+    tables = O.stack_tables([O.extend_operands(o, *env) for o in opses],
+                            dev)
+    entries = []
+    for i, g in enumerate(graphs):
+        n = c // len(graphs) + (i < c % len(graphs))
+        if n:
+            entries.append((i, np.concatenate(
+                [low_rows(g, n - n // 2, seed), box_rows(g, n // 2, seed)])))
+    tor, depths = O.stack_rows(entries, env[1])
+    tor = torch.as_tensor(tor, device=dev)
+    idx = tor.long()
+    depths = torch.as_tensor(depths, device=dev)
+    torch.cuda.synchronize(dev)
+    torch.cuda.reset_peak_memory_stats(dev)
+    base = torch.cuda.memory_allocated(dev)
+    rd, bpi, bpv, _, _ = O.hetero_depth_operands(tables, idx, depths)
+    peak = torch.cuda.max_memory_allocated(dev) - base
+    per_row = [getattr(tables, f)[idx] for f in
+               ("delta", "seg_start", "is_read", "has_data", "data_idx",
+                "end_bonus")]
+    return tables, tor, (rd, bpi, bpv), tables.bound[idx], per_row, peak
+
+
+def hetero_args(tables, tor, rows, bounds):
+    """fifo_eval_hetero's positional operands and keywords."""
+    args = (tables.delta, tables.seg_start, tables.is_read,
+            tables.has_data, tables.data_idx, tables.end_bonus, *rows)
+    return args, {"table_of_row": tor, "bounds": bounds}
+
+
+def check_k2_hetero(dev, cmp: Compare) -> None:
+    """K2's per-design-table mode on mixed batches, at the cluster size
+    the chooser picks and at every size it allows, against the plain
+    ``fifo_eval_ref_hetero`` on the same per-row operands."""
+    import torch
+    from repro_torch.kernels.fifo_eval.fifo_eval import (fifo_eval_hetero,
+                                                         k2_cluster_sizes,
+                                                         launch_shape)
+    from repro_torch.kernels.fifo_eval.ref import fifo_eval_ref_hetero
+    for c in HETERO_BATCHES:
+        tables, tor, rows, bounds, per_row, _ = hetero_batch(
+            HETERO_DESIGNS, c, dev)
+        args, kw = hetero_args(tables, tor, rows, bounds)
+        e_pad = tables.e_pad
+        chosen = launch_shape(c, e_pad, dev)[0]
+        sizes = k2_cluster_sizes(e_pad, max_cluster(dev))
+        for max_iters in (256, 2):
+            for with_times in (False, True):
+                p_out, p_t = fifo_eval_ref_hetero(
+                    *per_row, *rows, bounds, max_iters=max_iters,
+                    with_times=with_times)
+                for cluster in (None,) + sizes:
+                    out, t = fifo_eval_hetero(*args, **kw,
+                                              max_iters=max_iters,
+                                              with_times=with_times,
+                                              cluster=cluster)
+                    torch.cuda.synchronize()
+                    what = (f"hetero C={c} iters={max_iters} t={with_times}"
+                            f" cluster={cluster or chosen}")
+                    cmp.same("fifo_eval_hetero", what, out, p_out)
+                    if with_times:
+                        cmp.same("fifo_eval_hetero", what + " times", t, p_t)
+                over = out[:, 2] > 0
+                # the per-row stop on bounds[row] must be exercised, on the
+                # rows of two designs (two bounds) once the batch has both
+                stopped = set(tor[over].tolist())
+                if max_iters == 256 and len(stopped) < min(2, c):
+                    raise AssertionError(
+                        f"hetero C={c}: rows of {len(stopped)} designs "
+                        "stopped on their bound")
+                emit({"phase": "check", "kernel": "fifo_eval",
+                      "mode": "per-design tables",
+                      "designs": list(HETERO_DESIGNS), "e_pad": e_pad,
+                      "rows": c, "max_iters": max_iters,
+                      "with_times": with_times, "clusters": list(sizes),
+                      "chosen": chosen, "equal": True,
+                      "converged": int((out[:, 1] > 0).sum()),
+                      "over": int(over.sum()),
+                      "over_designs": len(stopped),
+                      "max_iters_run": int(out[:, 3].max())})
+
+
 # --------------------------------------------------------------- main path
 def reset_counts():
     from repro_torch.kernels.fifo_eval import condensed, fifo_eval, ops
     fifo_eval.fifo_eval.launches = 0
     fifo_eval.fifo_eval.clusters = {}
     fifo_eval.fifo_eval.rows = {}
+    fifo_eval.fifo_eval_hetero.launches = 0
+    fifo_eval.fifo_eval_hetero.clusters = {}
+    fifo_eval.fifo_eval_hetero.rows = {}
     condensed.fifo_eval_condensed.launches = 0
     condensed.fifo_eval_condensed.rows = {}
     ops.DISPATCH_COUNTS.clear()
@@ -363,6 +504,10 @@ def read_counts() -> dict:
     return {"fifo_eval": fifo_eval.fifo_eval.launches,
             "fifo_eval_clusters": dict(fifo_eval.fifo_eval.clusters),
             "fifo_eval_rows": dict(fifo_eval.fifo_eval.rows),
+            "fifo_eval_hetero": fifo_eval.fifo_eval_hetero.launches,
+            "fifo_eval_hetero_clusters":
+                dict(fifo_eval.fifo_eval_hetero.clusters),
+            "fifo_eval_hetero_rows": dict(fifo_eval.fifo_eval_hetero.rows),
             "fifo_eval_condensed":
                 condensed.fifo_eval_condensed.launches,
             "fifo_eval_condensed_rows":
@@ -483,7 +628,9 @@ def main_path(dev) -> dict:
 
 # ----------------------------------------------- certification and search
 def design_of(name: str):
-    from repro_torch.designs import flowgnn_pna, make_design
+    from repro_torch.designs import flowgnn_pna, make_design, mult_by_2
+    if name.startswith("mult_by_2("):
+        return mult_by_2(int(name[len("mult_by_2("):-1]))
     return flowgnn_pna() if name == "flowgnn_pna" else make_design(name)
 
 
@@ -617,18 +764,20 @@ def certify_search() -> dict:
         for opt in SEARCH_OPTIMIZERS:
             before = stats_of(adv.evaluator)
             res, wall, counts = run_step(
-                lambda: adv.run(opt, budget=BUDGET, seed=0))
+                lambda: adv.run(opt, budget=SEARCH_BUDGET, seed=0))
             want, ref_wall = wall_of(
-                lambda: ref.run(opt, budget=BUDGET, seed=0))
+                lambda: ref.run(opt, budget=SEARCH_BUDGET, seed=0))
             same_search(f"{name} {opt}", res, want)
             record(name, opt, "search", wall, counts, res.result.n_evals,
-                   ref_wall, adv.evaluator, before,
+                   ref_wall, adv.evaluator, before, budget=SEARCH_BUDGET,
                    hypervolume=res.hypervolume(),
                    frontier_points=res.frontier_points.tolist())
         if name == "gemm":
             before = stats_of(adv.evaluator)
-            got, wall, counts = run_step(lambda: adv.run_all())
-            want, ref_wall = wall_of(lambda: ref.run_all())
+            got, wall, counts = run_step(
+                lambda: adv.run_all(budget=SEARCH_BUDGET))
+            want, ref_wall = wall_of(
+                lambda: ref.run_all(budget=SEARCH_BUDGET))
             if list(got) != list(want):
                 raise AssertionError("gemm run_all: optimizers differ")
             for k in got:
@@ -654,6 +803,172 @@ def certify_search() -> dict:
     return {k: {"launches": sum(by_kind[kind][k] for kind in
                                 ("construct", "certify", "search")),
                 "by_rows": rows[k]} for k in kernels}
+
+
+# --------------------------------------------------------------- campaigns
+def campaign_spec(designs, **kw):
+    from repro_torch.core.campaign import CampaignSpec
+    return CampaignSpec(designs=tuple(designs),
+                        optimizers=CAMPAIGN_OPTIMIZERS,
+                        budget=CAMPAIGN_BUDGET, seed=0, **kw)
+
+
+def same_store(label: str, got, want) -> None:
+    """Every task's history, frontier and hypervolume equal."""
+    if list(got.keys()) != list(want.keys()):
+        raise AssertionError(f"{label}: tasks differ")
+    for k in want.keys():
+        same_search(f"{label} {k}", got[k], want[k])
+
+
+def campaign_phase(dev) -> dict:
+    """Phase 6: campaigns on the card against the same campaigns on the
+    numpy backend.  Returns the hetero campaign's counts and stats."""
+    import dataclasses
+    import shutil
+    import tempfile
+    import numpy as np
+    from repro_torch.core import EvalConfig, FifoAdvisor
+    from repro_torch.core.campaign import Campaign
+    from repro_torch.designs import FAST_DESIGNS, QUICK_DESIGNS, make_design
+    cuda, numpy_cfg = EvalConfig(backend="cuda"), EvalConfig(backend="numpy")
+    ref_fast, ref_fast_wall = wall_of(lambda: Campaign(campaign_spec(
+        FAST_DESIGNS, eval=numpy_cfg, workers=0), device=dev).run())
+    ref_quick, ref_quick_wall = wall_of(lambda: Campaign(campaign_spec(
+        QUICK_DESIGNS, eval=numpy_cfg, workers=0), device=dev).run())
+    kernels = ("fifo_eval", "fifo_eval_condensed", "fifo_eval_hetero")
+    totals = dict.fromkeys(kernels, 0)
+
+    def report(mode, designs, store, want, wall, ref_wall, counts, **extra):
+        same_store(f"campaign {mode}", store, want)
+        for k in kernels:
+            totals[k] += counts[k]
+        emit({"phase": "campaign", "mode": mode, "designs": list(designs),
+              "tasks": len(store), "evals": store.total_evals(),
+              "wall_s": wall, "numpy_wall_s": ref_wall,
+              "equal_to_numpy": True,
+              "launches": {k: counts[k] for k in kernels},
+              "fifo_eval_launches_by_rows": counts["fifo_eval_rows"],
+              "fifo_eval_hetero_launches_by_rows":
+                  counts["fifo_eval_hetero_rows"],
+              "fifo_eval_hetero_launches_by_cluster":
+                  counts["fifo_eval_hetero_clusters"],
+              "fifo_eval_condensed_launches_by_rows":
+                  counts["fifo_eval_condensed_rows"], **extra})
+
+    # the slice's path: every full-solve row of a round in one K2 launch
+    def hetero():
+        camp = Campaign(campaign_spec(FAST_DESIGNS, eval=cuda, hetero=True,
+                                      workers=0), device=dev)
+        return camp, camp.run()
+    (camp, store), wall, counts = run_step(hetero)
+    if counts["fifo_eval_hetero"] == 0:
+        raise AssertionError("the hetero campaign launched no K2 in its "
+                             "per-design-table mode")
+    stats = dataclasses.asdict(camp.hetero.stats)
+    report("hetero", FAST_DESIGNS, store, ref_fast, wall, ref_fast_wall,
+           counts, rounds=camp.round, hetero_stats=stats,
+           e_pad=camp.hetero.e_pad)
+    out = {"counts": counts, "stats": stats, "totals": totals}
+
+    # per-design campaigns: inline, and pooled (spawn: CUDA is up)
+    for mode, workers in (("inline", 0), ("pooled", 2)):
+        def per_design():
+            camp = Campaign(campaign_spec(QUICK_DESIGNS, eval=cuda,
+                                          workers=workers), device=dev)
+            method = camp.pool.start_method if camp.pool else None
+            return camp, camp.run(), method
+        (camp, store, method), wall, counts = run_step(per_design)
+        if mode == "inline" and not (counts["fifo_eval"]
+                                     + counts["fifo_eval_condensed"]):
+            raise AssertionError("the inline campaign launched no kernel")
+        if mode == "pooled" and method != "spawn":
+            raise AssertionError(f"pooled campaign started its workers "
+                                 f"with {method!r}, not spawn")
+        report(mode, QUICK_DESIGNS, store, ref_quick, wall, ref_quick_wall,
+               counts, start_method=method, pool_stats=camp.pool_stats)
+
+    # stop a hetero campaign after 3 rounds, resume it from its checkpoint
+    tmp = tempfile.mkdtemp(prefix="chip_smoke_campaign_")
+    try:
+        path = os.path.join(tmp, "camp.npz")
+
+        def stop_and_resume():
+            first = Campaign(campaign_spec(QUICK_DESIGNS, eval=cuda,
+                                           hetero=True, checkpoint_every=2),
+                             checkpoint_path=path, device=dev)
+            first.run(max_rounds=3)
+            if first.finished:
+                raise AssertionError("checkpoint: finished in 3 rounds")
+            return Campaign.resume(path, device=dev).run()
+        store, wall, counts = run_step(stop_and_resume)
+        report("checkpoint_resume", QUICK_DESIGNS, store, ref_quick, wall,
+               ref_quick_wall, counts, stopped_after_rounds=3)
+    finally:
+        shutil.rmtree(tmp, ignore_errors=True)
+
+    # backend="auto": the evaluator races numpy against the kernels
+    adv, wall, counts = run_step(lambda: FifoAdvisor(
+        make_design("gemm"), EvalConfig(backend="auto"), device=dev))
+    cal = adv.evaluator.calibration
+    if cal["chosen"] not in ("numpy", "cuda") \
+            or set(cal["probe_s"]) != {"numpy", "cuda"}:
+        raise AssertionError(f"auto calibration {cal}")
+    if adv.evaluator.config.backend != cal["chosen"]:
+        raise AssertionError("auto: config.backend is not the chosen one")
+    res = adv.run("grouped_sa", budget=CAMPAIGN_BUDGET, seed=0)
+    ref = FifoAdvisor(make_design("gemm"), numpy_cfg).run(
+        "grouped_sa", budget=CAMPAIGN_BUDGET, seed=0)
+    same_search("auto gemm grouped_sa", res, ref)
+    for k in kernels:
+        totals[k] += counts[k]
+    emit({"phase": "campaign", "mode": "auto_backend", "design": "gemm",
+          "calibration": cal, "construct_wall_s": wall,
+          "launches": {k: counts[k] for k in kernels},
+          "evals": res.result.n_evals, "equal_to_numpy": True,
+          "frontier_points": np.asarray(res.frontier_points).tolist()})
+    return out
+
+
+def fuzz_phase() -> None:
+    """Phase 7: the fuzz CLI in a fresh process per mode (so that
+    ``chaos`` may fork), over a temporary copy of the corpus."""
+    import shutil
+    import tempfile
+    tmp = tempfile.mkdtemp(prefix="chip_smoke_fuzz_")
+    try:
+        corpus = os.path.join(tmp, "corpus")
+        shutil.copytree(os.path.join(ROOT, "tests", "fuzz_corpus"), corpus)
+        env = dict(os.environ, PYTHONPATH=SRC + os.pathsep
+                   + os.environ.get("PYTHONPATH", ""))
+        for mode, extra in (
+                ("diff", ["--seeds", "0:40", "--backends",
+                          "worklist,condensed,cuda,cuda-condensed"]),
+                ("bounds", ["--seeds", "0:200"]),
+                ("chaos", ["--seeds", "0:10"])):
+            summary = os.path.join(tmp, f"{mode}.json")
+            cmd = [sys.executable, "-m", "repro_torch.launch.fuzz",
+                   "--quick", "--mode", mode, "--corpus", corpus,
+                   "--out", summary, *extra]
+            t0 = time.perf_counter()
+            r = subprocess.run(cmd, cwd=ROOT, env=env, capture_output=True,
+                               text=True, timeout=600)
+            if r.returncode != 0:
+                raise AssertionError(f"fuzz --mode {mode} exited "
+                                     f"{r.returncode}:\n{r.stdout[-3000:]}"
+                                     f"\n{r.stderr[-3000:]}")
+            with open(summary) as f:
+                res = json.load(f)
+            emit({"phase": "fuzz", "mode": mode, "rc": r.returncode,
+                  "seconds": time.perf_counter() - t0,
+                  "n_designs": res["n_designs"], "n_rows": res["n_rows"],
+                  "backends": res["backends"], "wall_s": res["wall_s"],
+                  "disagreements": len(res["mismatches"]),
+                  "corpus_unchanged": sorted(os.listdir(corpus)) == sorted(
+                      os.listdir(os.path.join(ROOT, "tests",
+                                              "fuzz_corpus")))})
+    finally:
+        shutil.rmtree(tmp, ignore_errors=True)
 
 
 # ------------------------------------------------------------------ timing
@@ -708,13 +1023,13 @@ def profiled(fn):
     """``fn()`` under ``torch.profiler``: (result, wall seconds, device
     busy seconds or None, the six largest device entries in µs).  Device
     busy time is the sum of the device-side activities the profiler
-    records (kernels and copies): an aten op's own entry also carries the
-    time of the kernels it launched, so only device entries count."""
+    records (kernels and copies).  Only device activity is recorded:
+    host ops would slow the run and their summary takes longer than the
+    run itself."""
     import torch
     from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile
-    with profile(activities=[ProfilerActivity.CPU,
-                             ProfilerActivity.CUDA]) as prof:
+    with profile(activities=[ProfilerActivity.CUDA]) as prof:
         t0 = time.perf_counter()
         out = fn()
         torch.cuda.synchronize()
@@ -740,32 +1055,84 @@ def emit_profile(design: str, step: str, wall: float, busy, top) -> None:
           else "not measured", "top_device_us": top})
 
 
-def profile_paths() -> None:
-    """Where the time goes: one fresh ``grouped_sa`` run per main-path
-    design (trace, condensation and search), then phase 5's steps on a
-    fresh advisor per design (construction with its certification,
-    unseeded certification, ``greedy``, ``nsga2``, ``vmap_search``), each
+def profile_paths(dev) -> None:
+    """Where the time goes: phase 6's hetero campaign (construction
+    included), then for each design of :data:`PROFILE_DESIGNS` a fresh
+    ``grouped_sa`` run (trace, condensation and search) and, on a fresh
+    advisor, phase 5's unseeded certification and ``vmap_search``, each
     under ``torch.profiler``."""
     from repro_torch.core import EvalConfig, FifoAdvisor
+    from repro_torch.core.campaign import Campaign
     from repro_torch.core.deadlock import certify_min_depths
-    from repro_torch.designs import make_design
-    for name in MAIN_DESIGNS:
+    from repro_torch.designs import FAST_DESIGNS
+    _, wall, busy, top = profiled(lambda: Campaign(campaign_spec(
+        FAST_DESIGNS, eval=EvalConfig(backend="cuda"), hetero=True,
+        workers=0), device=dev).run())
+    emit_profile("FAST_DESIGNS", "hetero_campaign", wall, busy, top)
+    for name in PROFILE_DESIGNS:
         _, wall, busy, top = profiled(lambda: FifoAdvisor(
-            make_design(name), EvalConfig(backend="cuda")).run(
+            design_of(name), EvalConfig(backend="cuda")).run(
                 "grouped_sa", budget=BUDGET, seed=0))
         emit_profile(name, "grouped_sa", wall, busy, top)
-    cuda = EvalConfig(backend="cuda", **PRUNING)
-    for name in CERT_DESIGNS:
-        adv, wall, busy, top = profiled(
-            lambda: FifoAdvisor(design_of(name), cuda))
-        emit_profile(name, "construct_and_certify", wall, busy, top)
+        adv = FifoAdvisor(design_of(name),
+                          EvalConfig(backend="cuda", **PRUNING))
         _, wall, busy, top = profiled(
             lambda: certify_min_depths(adv.graph, adv.evaluator))
         emit_profile(name, "certify_unseeded", wall, busy, top)
-        for opt in SEARCH_OPTIMIZERS:
-            _, wall, busy, top = profiled(
-                lambda: adv.run(opt, budget=BUDGET, seed=0))
-            emit_profile(name, opt, wall, busy, top)
+        _, wall, busy, top = profiled(
+            lambda: adv.run("vmap_search", budget=SEARCH_BUDGET, seed=0))
+        emit_profile(name, "vmap_search", wall, busy, top)
+
+
+def time_k2_hetero(dev, campaign: dict) -> list:
+    """K2's per-design-table mode over FAST_DESIGNS at the hetero
+    campaign's most frequent launch size, at its mean real rows per
+    launch and at the dispatcher's bucket for that many rows, against its
+    plain version and its bound (each design's tables counted once, plus
+    the per-row operands)."""
+    import torch
+    from repro_torch.core.backends import HeteroDispatcher
+    from repro_torch.designs import FAST_DESIGNS
+    from repro_torch.kernels.fifo_eval.fifo_eval import (fifo_eval_hetero,
+                                                         launch_shape)
+    from repro_torch.kernels.fifo_eval.ref import fifo_eval_ref_hetero
+    stats, by_rows = campaign["stats"], campaign["counts"][
+        "fifo_eval_hetero_rows"]
+    typical = max(by_rows.items(), key=lambda kv: (kv[1], kv[0]))[0]
+    mean = max(1, round(stats["n_rows"] / stats["n_dispatches"]))
+    bucket = next(b for b in HeteroDispatcher.BUCKETS if b >= mean)
+    out_rows = []
+    for shape, c in (("campaign_typical", typical), ("campaign_mean", mean),
+                     ("campaign_mean_bucket", bucket)):
+        tables, tor, rows, bounds, per_row, peak = hetero_batch(
+            FAST_DESIGNS, c, dev)
+        args, kw = hetero_args(tables, tor, rows, bounds)
+        out, _ = fifo_eval_hetero(*args, **kw, max_iters=256)
+        ms = cuda_ms(lambda: fifo_eval_hetero(*args, **kw, max_iters=256),
+                     reps=5)
+        plain = cuda_ms(lambda: fifo_eval_ref_hetero(
+            *per_row, *rows, bounds, max_iters=256), reps=1)
+        b, by = bound_ms(args + (tor, bounds), out)
+        slowest = int(out[:, 3].max())
+        out_rows.append(
+            {"shape": shape, "design": "FAST_DESIGNS (per-design tables)",
+             "designs": tables.n_designs, "rows": c, "e_pad": tables.e_pad,
+             "cluster": launch_shape(c, tables.e_pad, dev)[0],
+             "active": k2_active(dev, tables.e_pad),
+             "iters_sum": int(out[:, 3].sum()), "iters_max": slowest,
+             "ms": ms, "us_per_iter": ms * 1e3 / slowest, "plain_ms": plain,
+             "bound_ms": b, "bound_by": by,
+             "depth_operands_peak_mib": peak / 2**20})
+        emit({"phase": "time", "kernel": "fifo_eval",
+              "mode": "per-design tables", **out_rows[-1]})
+    # the device memory the per-row operands take at the campaign's
+    # largest launch
+    largest = max(by_rows)
+    peak = hetero_batch(FAST_DESIGNS, largest, dev)[-1]
+    emit({"phase": "memory", "kernel": "fifo_eval",
+          "mode": "per-design tables", "rows": largest,
+          "depth_operands_peak_mib": peak / 2**20})
+    return out_rows
 
 
 def timings(dev) -> dict:
@@ -913,6 +1280,7 @@ def run() -> int:
     cmp = Compare()
     t0 = time.perf_counter()
     check_k2(dev, cmp)
+    check_k2_hetero(dev, cmp)
     check_k1(dev, cmp)
     emit({"phase": "checks_done", "seconds":
           round(time.perf_counter() - t0, 3), "max_abs_err": cmp.err})
@@ -927,8 +1295,24 @@ def run() -> int:
     emit({"phase": "certify_search_done",
           "seconds": round(time.perf_counter() - t0, 3)})
 
+    t0 = time.perf_counter()
+    campaign = campaign_phase(dev)
+    emit({"phase": "campaign_done",
+          "seconds": round(time.perf_counter() - t0, 3)})
+    t0 = time.perf_counter()
+    fuzz_phase()
+    emit({"phase": "fuzz_done", "seconds": round(time.perf_counter() - t0,
+                                                 3)})
+
+    t0 = time.perf_counter()
     times = timings(dev)
-    profile_paths()
+    hetero_times = time_k2_hetero(dev, campaign)
+    emit({"phase": "times_done",
+          "seconds": round(time.perf_counter() - t0, 3)})
+    t0 = time.perf_counter()
+    profile_paths(dev)
+    emit({"phase": "profile_done",
+          "seconds": round(time.perf_counter() - t0, 3)})
     sources = {"fifo_eval": ("src/repro_torch/csrc/fifo_eval.cu",
                              "src/repro/kernels/fifo_eval/fifo_eval.py:49"),
                "fifo_eval_condensed": (
@@ -947,24 +1331,37 @@ def run() -> int:
                     "iters_max", "ms", "ms_max_iters_1", "plain_ms",
                     "bound_ms", "bound_by")
             extra = {"launch": worst["launch"],
-                     "launches_by_rows": k1_rows, "shapes": [
+                     "launches_by_rows": k1_rows,
+                     "campaign_launches":
+                         campaign["totals"]["fifo_eval_condensed"],
+                     "shapes": [
                          {k: r[k] for k in keys} for r in times[name]
                          if r["shape"] == "main_path" or r is worst]}
         if name == "fifo_eval":
-            # K2 also at the main path's shape, with the chosen clusters
+            # K2 also at the main path's shape, with the chosen clusters,
+            # and in its per-design-table mode on the campaign's path
             keys = ("shape", "design", "rows", "e_pad", "cluster",
                     "active", "iters_max", "ms", "us_per_iter", "plain_ms",
                     "bound_ms", "bound_by")
+            counts = campaign["counts"]
             extra = {"cluster": worst["cluster"], "shapes": [
                 {k: r[k] for k in keys} for r in times[name]
                 if r["shape"] in ("main_path", "cert_probe")
-                or r is worst]}
+                or r is worst] + hetero_times,
+                "campaign_launches": campaign["totals"]["fifo_eval"],
+                "hetero_launches": counts["fifo_eval_hetero"],
+                "hetero_launches_by_rows": counts["fifo_eval_hetero_rows"],
+                "hetero_launches_by_cluster":
+                    counts["fifo_eval_hetero_clusters"],
+                "hetero_stats": campaign["stats"]}
         kernels.append({
             "name": name, "route": "cuda", "source": source,
             "replaces": replaces, "launches": launches[name],
             "cert_search_launches": cert_search[name]["launches"],
             "cert_search_launches_by_rows": cert_search[name]["by_rows"],
-            "max_abs_err": cmp.err.get(name, 0.0), "ms": worst["ms"],
+            "max_abs_err": max(cmp.err.get(name, 0.0),
+                               cmp.err.get(name + "_hetero", 0.0)),
+            "ms": worst["ms"],
             "plain_ms": worst["plain_ms"], "bound_ms": worst["bound_ms"],
             "bound_by": worst["bound_by"], "library_ms": None,
             "shape": {k: worst[k] for k in ("design", "rows", "e_pad")},

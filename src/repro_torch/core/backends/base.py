@@ -114,8 +114,15 @@ _LAZY_BACKEND_MODULES = {
 _NOT_PORTED = {
     "mesh": "P11 (multi-device row sharding)",
     "sharded": "P11 (multi-device row sharding)",
-    "auto": "P5b (per-design calibration, BatchedEvaluator._calibrate)",
 }
+
+
+def available_backends() -> Tuple[str, ...]:
+    """Canonical backend names of this package (the torch backends run
+    on the device the caller gives them)."""
+    names = {cls.name for cls in BACKENDS.values()}
+    names.update({"worklist", "fixpoint", "cuda"})
+    return tuple(sorted(names))
 
 
 def get_backend(name: str) -> Type[EvalBackend]:

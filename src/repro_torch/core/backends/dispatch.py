@@ -19,16 +19,23 @@ Kernel-backed rung evaluators certify on the device
 (``fused_certificate``); the rest return event times for the host-side
 ``condense.verify_rows``.
 
-The reference's cross-design ``HeteroDispatcher`` waits for ROADMAP P10.
+:class:`HeteroDispatcher` extends the same concerns across *designs*: it
+packs rows from many graphs into one batch over a shared ``E*/F*/R*``
+envelope — one K2 launch in its per-design-table mode on a CUDA device —
+with per-design worklist escalation.  torch is imported lazily, so this
+module stays importable in the numpy-only worker processes.
 """
 
 from __future__ import annotations
 
-from typing import Optional, Tuple
+import dataclasses
+import time
+from typing import Dict, List, Optional, Sequence, Tuple
 
 import numpy as np
 
-from repro_torch.core.backends.base import (CONVERGED, DEADLOCK, EvalBackend,
+from repro_torch.core.backends.base import (CONVERGED, DEADLOCK,
+                                            F32_EXACT_LIMIT, EvalBackend,
                                             UNRESOLVED)
 from repro_torch.core.backends.worklist import WorklistBackend
 
@@ -169,3 +176,165 @@ class RungCascade:
             lat[rem] = rlat
             dead[rem] = rdead
         return lat, dead
+
+
+@dataclasses.dataclass
+class HeteroStats:
+    n_dispatches: int = 0
+    n_rows: int = 0          # real rows evaluated
+    n_pad_rows: int = 0      # bucket-padding overhead rows
+    n_fallbacks: int = 0     # UNRESOLVED rows escalated to a worklist
+    wall_s: float = 0.0
+
+
+class HeteroDispatcher:
+    """One vectorized dispatch for rows spanning MANY designs.
+
+    Built once per campaign from every participating graph: computes the
+    shared ``(E*, F*, R*)`` envelope, re-pads each design's operands to
+    it, and keeps every design's tables ONCE on the device
+    (:class:`~repro_torch.core.backends.operands.HeteroTables`).  A
+    dispatch sends each row's table index and depths, padded to a bucket
+    of :attr:`BUCKETS` (the reference's sizes), through one launch.
+    UNRESOLVED rows are escalated to the owning design's worklist
+    arbiter, exactly like :class:`DispatchPolicy`.  ``device=None``
+    means ``cuda``; ``mesh``/``shards`` (row sharding) are ROADMAP P11.
+    """
+
+    #: finer-grained than BUCKETS: cross-design batches vary more in size
+    BUCKETS = (1, 2, 4, 8, 16, 32, 64, 128, 256, 512, 1024, 2048, 4096)
+
+    def __init__(self, graphs: Dict[str, object],
+                 worklists: Optional[Dict[str, WorklistBackend]] = None,
+                 max_iters: int = 64,
+                 buckets: Sequence[int] = BUCKETS,
+                 mesh=None, shards: Optional[int] = None, device=None):
+        if mesh is not None or shards is not None:
+            raise NotImplementedError(
+                "hetero row sharding over devices is not ported yet: "
+                "ROADMAP P11 (multi-device row sharding)")
+        from repro_torch.core.backends.base import resolve_device
+        from repro_torch.core.backends.operands import get_operands
+        from repro_torch.kernels.fifo_eval.ops import \
+            make_hetero_batched_eval
+        self.max_iters = int(max_iters)
+        self.device = resolve_device(device)
+        self.e_pad = 0
+        self.f_max = 0
+        self.r_max = 0
+        self._base: Dict[str, object] = {}   # per-design host operands
+        self._ext: Dict[str, object] = {}    # envelope-padded operands
+        self._slot: Dict[str, int] = {}      # design -> table row
+        self._tables = None                  # HeteroTables on the device
+        self.worklists: Dict[str, WorklistBackend] = {}
+        self._call = make_hetero_batched_eval(max_iters, device=self.device)
+        self.buckets = tuple(buckets)
+        self.stats = HeteroStats()
+        worklists = worklists or {}
+        if graphs:
+            # pre-compute the shared envelope so registering N designs
+            # pads each exactly once (growth re-pads would be O(N^2))
+            opses = [get_operands(g, "cpu") for g in graphs.values()]
+            self.e_pad = max(o.e_pad for o in opses)
+            self.f_max = max(o.n_fifos for o in opses)
+            self.r_max = max(o.n_flat_reads for o in opses)
+        for k, g in graphs.items():
+            self.add_design(k, g, worklists.get(k))
+
+    def add_design(self, key: str, graph,
+                   worklist: Optional[WorklistBackend] = None) -> None:
+        """Register a design after construction (idempotent per key).
+
+        If the new design fits the current ``(E*, F*, R*)`` envelope,
+        only its own operands are padded; if it exceeds it, every
+        registered design is re-padded from its host operands.  Either
+        way the device tables are stacked anew.
+        """
+        if key in self._ext:
+            return
+        from repro_torch.core.backends.operands import (extend_operands,
+                                                        get_operands,
+                                                        stack_tables)
+        # the f32 fixpoint is only exact while times stay below 2**24
+        if graph.latency_upper_bound() > F32_EXACT_LIMIT:
+            raise ValueError(
+                f"design {key!r}: schedule bound exceeds the "
+                "float32-exact domain; split the design or reduce "
+                "trip counts")
+        ops = get_operands(graph, "cpu")
+        self._base[key] = ops
+        grew = (ops.e_pad > self.e_pad or ops.n_fifos > self.f_max
+                or ops.n_flat_reads > self.r_max)
+        self.e_pad = max(self.e_pad, ops.e_pad)
+        self.f_max = max(self.f_max, ops.n_fifos)
+        self.r_max = max(self.r_max, ops.n_flat_reads)
+        if grew:
+            self._ext = {k: extend_operands(o, self.e_pad, self.f_max,
+                                            self.r_max)
+                         for k, o in self._base.items()}
+        else:
+            self._ext[key] = extend_operands(ops, self.e_pad, self.f_max,
+                                             self.r_max)
+        self._slot = {k: i for i, k in enumerate(self._ext)}
+        self._tables = stack_tables(list(self._ext.values()), self.device)
+        if worklist is None:
+            worklist = WorklistBackend(max_iters=self.max_iters)
+            worklist.prepare(graph)
+        self.worklists[key] = worklist
+
+    def _pad_rows(self, table_of_row: np.ndarray, depths: np.ndarray
+                  ) -> Tuple[np.ndarray, np.ndarray]:
+        """Pad the batch up to the covering bucket by repeating the last
+        row."""
+        c = depths.shape[0]
+        bucket = next((b for b in self.buckets if b >= c), None)
+        target = c if bucket is None else bucket
+        if target == c:
+            return table_of_row, depths
+        pad = target - c
+        return (np.concatenate([table_of_row,
+                                np.repeat(table_of_row[-1:], pad)]),
+                np.concatenate([depths, np.repeat(depths[-1:], pad,
+                                                  axis=0)]))
+
+    def dispatch(self, items: List[Tuple[str, np.ndarray]]
+                 ) -> List[Tuple[np.ndarray, np.ndarray, np.ndarray]]:
+        """``[(design_key, (c_i, F_i) depths), ...]`` -> per-item results.
+
+        Every returned triple is exact ``(latency i64, bram i64,
+        deadlock bool)`` with -1 latency on deadlocked rows.
+        """
+        from repro_torch.core.backends.operands import stack_rows
+        t_start = time.perf_counter()
+        mats = [np.atleast_2d(np.asarray(m, dtype=np.int64))
+                for _, m in items]
+        table_of_row, depths = stack_rows(
+            [(self._slot[k], m) for (k, _), m in zip(items, mats)],
+            self.f_max)
+        C = depths.shape[0]
+        table_of_row, depths = self._pad_rows(table_of_row, depths)
+        lat, bram, status = self._call(self._tables, table_of_row, depths)
+        lat, bram, status = lat[:C], bram[:C], status[:C]
+
+        out = []
+        row0 = 0
+        for (key, _), m in zip(items, mats):
+            c = m.shape[0]
+            sl = slice(row0, row0 + c)
+            row0 += c
+            lat_i, bram_i = lat[sl].copy(), bram[sl].copy()
+            dead_i = status[sl] == DEADLOCK
+            unresolved = np.flatnonzero(status[sl] == UNRESOLVED)
+            if unresolved.size:
+                wl_lat, _, wl_status = self.worklists[key].evaluate(
+                    m[unresolved])
+                lat_i[unresolved] = wl_lat
+                dead_i[unresolved] = wl_status == DEADLOCK
+                self.stats.n_fallbacks += int(unresolved.size)
+            lat_i = np.where(dead_i, -1, lat_i)
+            out.append((lat_i, bram_i, dead_i))
+        self.stats.n_dispatches += 1
+        self.stats.n_rows += C
+        self.stats.n_pad_rows += depths.shape[0] - C
+        self.stats.wall_s += time.perf_counter() - t_start
+        return out

@@ -17,6 +17,11 @@
     The fused exactness certificate's slots on a condensed graph (see the
     comment block above :class:`CertTables`).
 
+``HeteroOperands`` / ``extend_operands`` / ``stack_hetero``
+    One design's event tables re-padded to a cross-design envelope, and a
+    batch of rows from many designs: each design's tables once, stacked
+    as ``(D, E*)``, plus each row's table index.
+
 Padding contract (what both CUDA kernels expect): events are padded to
 ``E_pad`` (a multiple of 128, minimum 128); the first padded event opens a
 fresh segment (``seg_start[E] = 1``) so the pad chain can never leak times
@@ -31,7 +36,7 @@ clips) and asserted to lie in ``[0, E_pad)`` when the operands are built.
 from __future__ import annotations
 
 import dataclasses
-from typing import Optional, Tuple
+from typing import Dict, List, Optional, Sequence, Tuple
 
 import numpy as np
 import torch
@@ -193,6 +198,235 @@ def get_operands(g, device) -> GraphOperands:
     if ops is None:
         ops = cache[str(device)] = build_operands(g, device)
     return ops
+
+
+@dataclasses.dataclass(frozen=True)
+class HeteroOperands:
+    """One design's event tables re-padded to a shared hetero envelope.
+
+    All arrays are numpy, field for field the reference's
+    ``HeteroOperands``.  The extension region ``[own e_pad, E*)`` follows
+    the standard padding contract: it opens a fresh segment, carries no
+    edges, zero delta, and ``end_bonus = NEG``, so it can never leak
+    times into real events.  Padded FIFO columns get width 1 (with depth
+    padded to 2 they are SRL by construction, contributing zero BRAM),
+    and padded read-table slots are never gathered because
+    ``evt_n_reads`` masks them out.
+    """
+
+    e_pad: int               # shared E* (lane-aligned)
+    n_fifos_max: int         # shared F*
+    n_flat_reads_max: int    # shared R*
+    n_fifos: int             # this design's real F
+    n_flat_reads: int        # this design's real R
+    bound: float
+    taskless_lat: float
+    # (E*,) event tables
+    delta: np.ndarray        # f32
+    seg_start: np.ndarray    # f32
+    is_read: np.ndarray      # f32
+    has_data: np.ndarray     # f32
+    end_bonus: np.ndarray    # f32
+    data_idx: np.ndarray     # i32
+    fifo: np.ndarray         # i32
+    rank: np.ndarray         # i32
+    is_write: np.ndarray     # bool
+    evt_read_base: np.ndarray    # i32
+    evt_n_reads: np.ndarray      # i32
+    # (F*,) / (R*,)
+    widths: np.ndarray       # i32
+    read_evt_flat: np.ndarray    # i32
+
+
+def _host(x: torch.Tensor) -> np.ndarray:
+    """A tensor's values as a 1-D numpy array (its first row if 2-D)."""
+    a = x.detach().cpu().numpy()
+    return a[0] if a.ndim == 2 else a
+
+
+def _extend(a: np.ndarray, n: int, fill) -> np.ndarray:
+    out = np.full(n, fill, dtype=a.dtype)
+    out[: len(a)] = a
+    return out
+
+
+def extend_operands(ops: GraphOperands, e_pad: int, f_max: int,
+                    r_max: int) -> HeteroOperands:
+    """Re-pad one design's :class:`GraphOperands` (on any device) to a
+    shared ``(E*, F*, R*)`` envelope."""
+    if e_pad % LANES or e_pad < ops.e_pad:
+        raise ValueError(f"envelope E* {e_pad} must be a {LANES} multiple "
+                         f">= the design's {ops.e_pad}")
+    if f_max < ops.n_fifos or r_max < ops.n_flat_reads:
+        raise ValueError("envelope F*/R* below the design's")
+    seg_start = _extend(_host(ops.seg_start), e_pad, 0.0)
+    if e_pad > ops.e_pad:
+        seg_start[ops.e_pad] = 1.0     # isolate the extension chain
+    return HeteroOperands(
+        e_pad=e_pad,
+        n_fifos_max=f_max,
+        n_flat_reads_max=r_max,
+        n_fifos=ops.n_fifos,
+        n_flat_reads=ops.n_flat_reads,
+        bound=ops.bound,
+        taskless_lat=ops.taskless_lat,
+        delta=_extend(_host(ops.delta), e_pad, 0.0),
+        seg_start=seg_start,
+        is_read=_extend(_host(ops.is_read), e_pad, 0.0),
+        has_data=_extend(_host(ops.has_data), e_pad, 0.0),
+        end_bonus=_extend(_host(ops.end_bonus), e_pad, float(NEG)),
+        data_idx=_extend(_host(ops.data_idx), e_pad, 0),
+        fifo=_extend(_host(ops.fifo), e_pad, 0),
+        rank=_extend(_host(ops.rank), e_pad, 0),
+        is_write=_extend(_host(ops.is_write), e_pad, False),
+        evt_read_base=_extend(_host(ops.evt_read_base), e_pad, 0),
+        evt_n_reads=_extend(_host(ops.evt_n_reads), e_pad, 0),
+        widths=_extend(_host(ops.widths), f_max, 1),
+        read_evt_flat=_extend(_host(ops.read_evt_flat), r_max, 0),
+    )
+
+
+#: the per-design tables of :class:`HeteroOperands` that rows index
+HETERO_TABLES = ("delta", "seg_start", "is_read", "has_data", "end_bonus",
+                 "data_idx", "fifo", "rank", "is_write", "evt_read_base",
+                 "evt_n_reads", "widths", "read_evt_flat")
+
+
+@dataclasses.dataclass(frozen=True)
+class HeteroTables:
+    """The tables of D designs in one envelope, each stored once on one
+    device: every :data:`HETERO_TABLES` field stacked as ``(D, E*)``
+    (``widths`` ``(D, F*)``, ``read_evt_flat`` ``(D, R*)``), f32, i32 or
+    bool as in :class:`HeteroOperands`, plus the per-design ``bound``,
+    ``taskless`` (f32) and ``n_flat_reads`` (i32), ``(D,)``.  A row of
+    design ``d`` reads row ``d`` of every table, so a batch never holds a
+    per-row copy of a table."""
+
+    e_pad: int
+    n_fifos_max: int
+    delta: torch.Tensor
+    seg_start: torch.Tensor
+    is_read: torch.Tensor
+    has_data: torch.Tensor
+    end_bonus: torch.Tensor
+    data_idx: torch.Tensor
+    fifo: torch.Tensor
+    rank: torch.Tensor
+    is_write: torch.Tensor
+    evt_read_base: torch.Tensor
+    evt_n_reads: torch.Tensor
+    widths: torch.Tensor
+    read_evt_flat: torch.Tensor
+    bound: torch.Tensor
+    taskless: torch.Tensor
+    n_flat_reads: torch.Tensor
+
+    @property
+    def n_designs(self) -> int:
+        return int(self.bound.shape[0])
+
+
+def stack_tables(hets: Sequence[HeteroOperands], device) -> HeteroTables:
+    """Stack the tables of designs padded to ONE envelope onto
+    ``device``: design ``d`` of the result is ``hets[d]``."""
+    if not hets:
+        raise ValueError("stack_tables needs at least one design")
+    env = {(h.e_pad, h.n_fifos_max, h.n_flat_reads_max) for h in hets}
+    if len(env) != 1:
+        raise ValueError(f"designs padded to different envelopes: {env}")
+    dev = torch.device(device)
+
+    def t(a, dtype):
+        return torch.as_tensor(np.ascontiguousarray(a), dtype=dtype,
+                               device=dev)
+
+    tables = {}
+    for name in HETERO_TABLES:
+        a = np.stack([getattr(h, name) for h in hets])
+        dtype = (torch.bool if a.dtype == np.bool_ else torch.float32
+                 if a.dtype.kind == "f" else torch.int32)
+        tables[name] = t(a, dtype)
+    return HeteroTables(
+        e_pad=hets[0].e_pad, n_fifos_max=hets[0].n_fifos_max, **tables,
+        bound=t([h.bound for h in hets], torch.float32),
+        taskless=t([h.taskless_lat for h in hets], torch.float32),
+        n_flat_reads=t([h.n_flat_reads for h in hets], torch.int32))
+
+
+def stack_rows(entries: Sequence[Tuple[int, np.ndarray]], f_max: int
+               ) -> Tuple[np.ndarray, np.ndarray]:
+    """``[(table index, (c_i, F_i) depths), ...]`` -> ``(table_of_row
+    (C,) i32, depths (C, F*) i64)``, rows concatenated in entry order.
+    Depth rows are padded to F* with depth 2 (zero-BRAM SRL columns that
+    no event references)."""
+    index, depths = [], []
+    for d, m in entries:
+        m = np.atleast_2d(np.asarray(m, dtype=np.int64))
+        index.append(np.full(m.shape[0], d, dtype=np.int32))
+        pad = np.full((m.shape[0], f_max), 2, dtype=np.int64)
+        pad[:, : m.shape[1]] = m
+        depths.append(pad)
+    return np.concatenate(index), np.concatenate(depths, axis=0)
+
+
+def stack_hetero(entries, device="cpu"
+                 ) -> Tuple[HeteroTables, np.ndarray, np.ndarray]:
+    """Stack ``[(HeteroOperands, (c_i, F_i) depths), ...]`` into one
+    batch: ``(tables, table_of_row, depths)``.  Each distinct
+    :class:`HeteroOperands` is stored once (in order of first
+    appearance); row ``i`` reads table row ``table_of_row[i]``, so
+    ``tables.<field>[table_of_row]`` is the reference ``stack_hetero``'s
+    per-row array of that field."""
+    hets: List[HeteroOperands] = []
+    slot: Dict[int, int] = {}
+    rows = []
+    for h, m in entries:
+        if id(h) not in slot:
+            slot[id(h)] = len(hets)
+            hets.append(h)
+        rows.append((slot[id(h)], m))
+    table_of_row, depths = stack_rows(rows, hets[0].n_fifos_max)
+    return stack_tables(hets, device), table_of_row, depths
+
+
+def hetero_depth_operands(tables: HeteroTables, table_of_row: torch.Tensor,
+                          depths: torch.Tensor
+                          ) -> Tuple[torch.Tensor, torch.Tensor,
+                                     torch.Tensor, torch.Tensor,
+                                     torch.Tensor]:
+    """:func:`depth_operands` for a cross-design batch: each row gathers
+    its own design's tables (``table_of_row``, (C,) long) and its own
+    widths.  Returns ``(rd_lat_e, bp_idx, bp_valid, structural, w)``:
+    (C, E*) f32 / i32 / f32 like :func:`depth_operands` (the
+    back-pressure add of a raw stream is 1), the (C,) structural-deadlock
+    flag, and the (C, F*) i32 widths of each row.  The rows of one design
+    are computed together against its ``(E*,)`` tables, so no table is
+    copied per row."""
+    d = depths.to(torch.int32)                             # (C, F*)
+    w = tables.widths[table_of_row]                        # (C, F*)
+    is_bram = ~((d <= SRL_DEPTH) | (d * w <= SRL_BITS))
+    rd_lat_f = 1.0 + is_bram.to(torch.float32)
+    shape = (d.shape[0], tables.e_pad)
+    rd_lat_e = torch.empty(shape, dtype=torch.float32, device=d.device)
+    bp_idx = torch.empty(shape, dtype=tables.read_evt_flat.dtype,
+                         device=d.device)
+    bp_valid = torch.empty(shape, dtype=torch.float32, device=d.device)
+    structural = torch.empty(shape[:1], dtype=torch.bool, device=d.device)
+    for t in torch.unique(table_of_row).tolist():
+        rows = torch.nonzero(table_of_row == t).squeeze(1)
+        fifo = tables.fifo[t].long()                       # (E*,)
+        rd_lat_e[rows] = rd_lat_f[rows][:, fifo]
+        bp_pos = tables.rank[t] - d[rows][:, fifo]         # (C_t, E*)
+        is_write = tables.is_write[t]
+        overrun = is_write & (bp_pos >= tables.evt_n_reads[t])
+        structural[rows] = overrun.any(dim=1)
+        bp_valid[rows] = (is_write & (bp_pos >= 0) & ~overrun
+                          ).to(torch.float32)
+        flat = torch.minimum(torch.clamp(tables.evt_read_base[t] + bp_pos,
+                                         min=0),
+                             tables.n_flat_reads[t] - 1)
+        bp_idx[rows] = tables.read_evt_flat[t][flat.long()]
+    return rd_lat_e, bp_idx, bp_valid, structural, w
 
 
 def depth_operands(ops: GraphOperands, depths: torch.Tensor

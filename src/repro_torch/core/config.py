@@ -10,9 +10,10 @@ the torch ``device`` and per-design ``upper_bounds`` arrays on
 ``FifoAdvisor``, prebuilt ``CondensedGraph`` rung lists (``rungs=``) on
 ``BatchedEvaluator``.
 
-The fields whose machinery is not ported yet (``shards``, ``faults``)
-are kept so reference configs round-trip, but raise
-``NotImplementedError`` when set.
+``faults`` carries a :class:`~repro_torch.core.faults.FaultPlan`'s JSON
+(the same schedule format as the reference's).  ``shards``, whose
+machinery is not ported yet, is kept so reference configs round-trip,
+but raises ``NotImplementedError`` when set.
 """
 
 from __future__ import annotations
@@ -25,7 +26,6 @@ __all__ = ["EvalConfig"]
 #: field -> (value that means "off", ROADMAP item that ports it)
 _NOT_PORTED = {
     "shards": (None, "P11 (multi-device row sharding)"),
-    "faults": (None, "P12 (core/faults.py)"),
 }
 
 
@@ -36,8 +36,9 @@ class EvalConfig:
     Args:
         backend: ``"cuda"`` (alias ``"pallas"``, the hand-written
             kernels), ``"fixpoint"`` (alias ``"jax"``, the plain torch
-            fixpoint) or ``"numpy"``/``"worklist"`` (CPU worklist with
-            incremental re-simulation).
+            fixpoint), ``"numpy"``/``"worklist"`` (CPU worklist with
+            incremental re-simulation) or ``"auto"`` (one-shot
+            per-design calibration probe).
         max_iters: fixpoint iteration cap for the batched backends.
         condense: ``"auto"`` condenses once per design and routes
             batches through the certified rung cascade; ``None``
@@ -53,8 +54,9 @@ class EvalConfig:
             traced.
         certified_floor: clamp every candidate grid at the certified
             minimal deadlock-free depths (``FifoAdvisor.min_safe_depths``).
-        shards, faults: reference fields, not ported yet (must stay
-            off).
+        faults: JSON of a :class:`~repro_torch.core.faults.FaultPlan`
+            to inject (chaos testing only; None = no injection).
+        shards: reference field, not ported yet (must stay off).
     """
 
     backend: str = "cuda"

@@ -14,6 +14,8 @@ The stable façade over :mod:`repro_torch.core.backends`:
     ``"fixpoint"`` (alias ``"jax"``) — the plain torch fixpoint.
     ``"numpy"`` (alias ``"worklist"``) — the event-driven worklist, with
         the incremental fast path ``evaluate_incremental``.
+    ``"auto"`` — one-shot per-design calibration: the fastest of the
+        numpy worklist and the device's tensor backend on a probe batch.
 
     The tensor backends take ``device=None`` (CUDA, raising without a
     card) or an explicit device.  Batch bucketing and UNRESOLVED-row
@@ -38,7 +40,7 @@ from repro_torch.core.backends import (BIG, CONVERGED, DEADLOCK,
                                        F32_EXACT_LIMIT, UNRESOLVED,
                                        DispatchPolicy, RungCascade,
                                        WorklistBackend, evaluate_np,
-                                       get_backend)
+                                       get_backend, resolve_device)
 from repro_torch.core.backends.worklist import WorklistState
 from repro_torch.core.bram import design_bram_np
 from repro_torch.core.config import EvalConfig
@@ -89,10 +91,15 @@ class BatchedEvaluator:
         self.g = g
         self.max_iters = config.max_iters
         self.stats = BatchStats()
-        self.config = config
-        self.backend = config.backend
-        self._impl = get_backend(config.backend)(max_iters=self.max_iters,
-                                                 device=device)
+        self.device = device
+        self.calibration = None
+        backend = config.backend
+        if backend == "auto":
+            backend = self._calibrate()
+        self.config = config.replace(backend=backend)
+        self.backend = backend
+        self._impl = get_backend(backend)(max_iters=self.max_iters,
+                                          device=device)
         self._impl.prepare(g)
         if isinstance(self._impl, WorklistBackend):
             self._worklist = self._impl
@@ -139,6 +146,37 @@ class BatchedEvaluator:
             impl.prepare(cg)
             rungs.append((cg, impl))
         return rungs
+
+    def _calibrate(self) -> str:
+        """One-shot per-design backend calibration (``backend="auto"``).
+
+        Times each candidate through the same evaluation path production
+        uses — a full ``BatchedEvaluator`` with its condensation cascade,
+        on a DSE-representative 16-row batch — and picks the fastest.
+        The candidates are the numpy worklist and the tensor backend of
+        this evaluator's device: the CUDA kernels on a CUDA device, the
+        plain torch fixpoint on the CPU (the kernels' plain versions are
+        their CPU oracle, not a contender there).  The probe timings are
+        kept in ``self.calibration``.
+        """
+        dev = resolve_device(self.device)
+        candidates = ["numpy", "cuda" if dev.type == "cuda" else "fixpoint"]
+        u = np.asarray(self.g.upper_bounds, dtype=np.int64)
+        rng = np.random.default_rng(0)
+        probe = np.stack([np.maximum(
+            2, (u * rng.uniform(0.5, 1.0, u.size)).astype(np.int64))
+            for _ in range(16)])
+        timings = {}
+        for name in candidates:
+            ev = BatchedEvaluator(self.g, EvalConfig(
+                backend=name, max_iters=self.max_iters), device=dev)
+            ev.evaluate(probe)                # warm (kernel build)
+            t0 = time.perf_counter()
+            ev.evaluate(probe)
+            timings[name] = time.perf_counter() - t0
+        chosen = min(timings, key=timings.get)
+        self.calibration = {"chosen": chosen, "probe_s": timings}
+        return chosen
 
     # ------------------------------------------------------------------
     def evaluate(self, depth_matrix: np.ndarray

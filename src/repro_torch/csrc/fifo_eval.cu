@@ -10,6 +10,16 @@
 // [max(t + end_bonus), converged, over_bound, iters] (float32), plus the
 // final times when `times` is not null.
 //
+// Per-design-table mode (cross-design batches; replaces the reference's
+// jnp vmap kernels/fifo_eval/ref.py::fifo_eval_ref_hetero on the card):
+// when `table_of_row` is not null, the six event tables hold D rows of
+// e_pad and row r reads table row table_of_row[r]; when `bounds` is not
+// null, row r stops on its own bound bounds[r]; when `bp_base` is null,
+// every back-pressure edge adds the raw stream's 1.  Null pointers take
+// the shared-table path, unchanged.  Each CTA of a cluster reads its row's
+// table index and bound itself, so every CTA takes the same stop
+// decision on the cluster-reduced max(t).
+//
 // What bounds it on the H100: the latency of one row-iteration.  The main
 // path sends batches of at most 8 rows and a row runs up to max_iters
 // Jacobi steps in sequence, each a gather, a segmented scan and a
@@ -193,13 +203,20 @@ fifo_eval_kernel(const float* __restrict__ delta,
                  const int* __restrict__ bp_idx,
                  const float* __restrict__ bp_valid,
                  const float* __restrict__ bp_base, float* __restrict__ out,
-                 float* __restrict__ times, int e_pad, int max_iters,
-                 float bound, int n_ranks) {
+                 float* __restrict__ times,
+                 const int* __restrict__ table_of_row,
+                 const float* __restrict__ bounds, int e_pad, int max_iters,
+                 float bound_all, int n_ranks) {
   extern __shared__ __align__(16) float t[];  // span + 1 floats
   __shared__ Shared sh;
   const int span = blockDim.x * K;
   const unsigned rank = CL ? cg::this_cluster().block_rank() : 0;
   const size_t row = blockIdx.x / n_ranks;
+  // this row's event tables and bound
+  const size_t tab =
+      table_of_row != nullptr ? (size_t)table_of_row[row] * e_pad : 0;
+  const float bound = bounds != nullptr ? bounds[row] : bound_all;
+  const bool unit_bp = bp_base == nullptr;  // back-pressure adds 1
   const int base = (int)rank * span + threadIdx.x * K;  // first event
   // the thread's events are all below e_pad or all above (e_pad % K == 0).
   // Keep this a comparison: ptxas 12.9 mis-compiled the equivalent
@@ -215,15 +232,16 @@ fifo_eval_kernel(const float* __restrict__ delta,
   unsigned seg = 0;
   {
     const size_t off = row * (size_t)e_pad + base;
-    const auto dv = load_vec<K>(delta + base, own);
-    const auto sg = load_vec<K>(segst + base, own);
-    const auto rd = load_vec<K>(is_read + base, own);
-    const auto hd = load_vec<K>(has_data + base, own);
-    const auto di = load_vec<K>(data_idx + base, own);
+    const auto dv = load_vec<K>(delta + tab + base, own);
+    const auto sg = load_vec<K>(segst + tab + base, own);
+    const auto rd = load_vec<K>(is_read + tab + base, own);
+    const auto hd = load_vec<K>(has_data + tab + base, own);
+    const auto di = load_vec<K>(data_idx + tab + base, own);
     const auto rl = load_vec<K>(rd_lat + off, own);
     const auto bi = load_vec<K>(bp_idx + off, own);
     const auto bv = load_vec<K>(bp_valid + off, own);
-    const auto bb = load_vec<K>(bp_base + off, own);
+    const auto bb = load_vec<K>(unit_bp ? nullptr : bp_base + off,
+                                own && !unit_bp);
 #pragma unroll
     for (int k = 0; k < K; ++k) {
       const bool read = rd.v[k] > 0.f;
@@ -234,7 +252,7 @@ fifo_eval_kernel(const float* __restrict__ delta,
       const float* cell = edge ? &t[idx - (int)owner * span] : &t[span];
       addr[k] = CL ? map_rank(cell, owner)
                    : (uint32_t)__cvta_generic_to_shared(cell);
-      ad[k] = edge ? (read ? rl.v[k] : bb.v[k]) : NEG;
+      ad[k] = edge ? (read ? rl.v[k] : unit_bp ? 1.f : bb.v[k]) : NEG;
       dl[k] = dv.v[k];
       // events past e_pad open segments of their own, and stay at t = 0
       if (!own || sg.v[k] > 0.f) seg |= 1u << k;
@@ -332,7 +350,7 @@ fifo_eval_kernel(const float* __restrict__ delta,
   float v = -CUDART_INF_F;
 #pragma unroll
   for (int k = 0; k < K; ++k)
-    if (own) v = fmaxf(v, tk[k] + end_bonus[base + k]);
+    if (own) v = fmaxf(v, tk[k] + end_bonus[tab + base + k]);
   float lat;
   bool unused;
   cluster_reduce<CL>(v, true, sh, n_ranks, &lat, &unused);
@@ -435,6 +453,10 @@ bool valid_shape(int cluster, int threads, int k) {
 // C interface, loaded with ctypes.  Shared operands are (e_pad,), per-row
 // operands (c, e_pad), out (c, 4), times (c, e_pad) or null; e_pad a
 // multiple of 4 (so a thread's events are all below e_pad or all above).
+// table_of_row (c,) or null: the shared operands are then (D, e_pad) and
+// row r reads row table_of_row[r] of them (each in [0, D), which the
+// caller checks); bounds (c,) or null: row r's own bound, else `bound`;
+// bp_base null: every back-pressure edge adds 1.
 // cluster, threads and k from fifo_eval.py::k2_launch_shape.
 // Returns the cudaError_t of the launch (0 on success), and
 // cudaErrorInvalidValue for a shape the kernel cannot run, checked before
@@ -444,7 +466,9 @@ extern "C" int fifo_eval_launch(const float* delta, const float* segst,
                                 const int* data_idx, const float* end_bonus,
                                 const float* rd_lat, const int* bp_idx,
                                 const float* bp_valid, const float* bp_base,
-                                float* out, float* times, int c, int e_pad,
+                                float* out, float* times,
+                                const int* table_of_row,
+                                const float* bounds, int c, int e_pad,
                                 int max_iters, float bound, int cluster,
                                 int threads, int k, void* stream) {
   if (c <= 0) return cudaSuccess;
@@ -460,7 +484,8 @@ extern "C" int fifo_eval_launch(const float* delta, const float* segst,
                             : launch<KK, true>(c, cluster, threads, s, ARGS))
 #define ARGS                                                                 \
   delta, segst, is_read, has_data, data_idx, end_bonus, rd_lat, bp_idx,      \
-      bp_valid, bp_base, out, times, e_pad, max_iters, bound
+      bp_valid, bp_base, out, times, table_of_row, bounds, e_pad, max_iters, \
+      bound
   switch (k) {
     case 1: FIFO_EVAL_LAUNCH(1);
     case 2: FIFO_EVAL_LAUNCH(2);

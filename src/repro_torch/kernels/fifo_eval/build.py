@@ -31,7 +31,7 @@ NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
 _P, _I, _F = ctypes.c_void_p, ctypes.c_int, ctypes.c_float
 #: argtypes of the C entry points (pointers and the stream as c_void_p)
 SIGNATURES = {
-    "fifo_eval_launch": [_P] * 12 + [_I, _I, _I, _F, _I, _I, _I, _P],
+    "fifo_eval_launch": [_P] * 14 + [_I, _I, _I, _F, _I, _I, _I, _P],
     "fifo_eval_active_clusters": [_I, _I, _I],
     "fifo_eval_condensed_launch": [_P] * 16 + [_I, _I, _I, _I, _F]
                                   + [_I] * 3 + [_P],

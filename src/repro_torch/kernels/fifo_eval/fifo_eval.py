@@ -5,6 +5,11 @@ tensors, and runs the plain torch version
 (:func:`repro_torch.kernels.fifo_eval.ref.fifo_eval_plain`) on CPU tensors.
 On any other device, or on inputs the kernel does not take, it raises.
 
+``fifo_eval_hetero`` launches the same kernel in its per-design-table
+mode, for cross-design batches: the event tables of D designs stacked as
+``(D, E*)``, each row's table index, and each row's bound; on CPU tensors
+it runs :func:`repro_torch.kernels.fifo_eval.ref.fifo_eval_ref_hetero`.
+
 Output layout (float32, one row per config):
     [0] latency   [1] converged (0/1)   [2] over-bound (0/1)   [3] iters
 
@@ -39,7 +44,8 @@ from typing import Mapping, Optional, Tuple
 import torch
 
 from repro_torch.kernels.fifo_eval import build
-from repro_torch.kernels.fifo_eval.ref import fifo_eval_plain
+from repro_torch.kernels.fifo_eval.ref import (fifo_eval_plain,
+                                               fifo_eval_ref_hetero)
 
 #: largest padded event count the kernel takes (8 CTAs x 4096 events)
 MAX_E_PAD = 32768
@@ -61,13 +67,21 @@ MIN_CTA_EVENTS = 128
 _SHARED_F32 = ("delta", "segst", "is_read", "has_data", "end_bonus")
 _ROW_F32 = ("rd_lat", "bp_valid", "bp_base")
 
-
 def check_operands(e_pad: int, shared: dict, row: dict,
-                   device: torch.device) -> None:
+                   device: torch.device,
+                   table_of_row: Optional[torch.Tensor] = None) -> None:
     """Raise on anything the kernels do not take: device, dtype, shape,
-    contiguity, and ``e_pad`` beyond :data:`MAX_E_PAD`."""
+    contiguity, and ``e_pad`` beyond :data:`MAX_E_PAD`; with
+    ``table_of_row`` (the per-design-table mode), also an index outside
+    ``[0, D)`` for the ``(D, e_pad)`` shared tables."""
     if e_pad > MAX_E_PAD:
         raise ValueError(f"e_pad {e_pad} exceeds the kernel's {MAX_E_PAD}")
+    if table_of_row is not None and table_of_row.numel():
+        n_tables = shared["delta"][2][0]
+        lo, hi = (int(v) for v in torch.aminmax(table_of_row))
+        if lo < 0 or hi >= n_tables:
+            raise ValueError(f"table_of_row holds {lo}..{hi}, outside "
+                             f"[0, {n_tables})")
     for name, (x, dtype, shape) in {**shared, **row}.items():
         if x.device != device:
             raise ValueError(f"{name} is on {x.device}, not {device}")
@@ -169,6 +183,47 @@ def _ptr(x: Optional[torch.Tensor]):
     return None if x is None else x.data_ptr()
 
 
+def _launch(shared: dict, row: dict, c: int, e_pad: int, max_iters: int,
+            bound: float, with_times: bool, cluster: Optional[int],
+            dev: torch.device, table_of_row=None, bounds=None
+            ) -> Tuple[torch.Tensor, Optional[torch.Tensor], int]:
+    """Check the operands and launch K2 once: (out, times, cluster)."""
+    check_operands(e_pad, shared, row, dev, table_of_row)
+    out = torch.empty((c, OUT_LANES), dtype=torch.float32, device=dev)
+    times = (torch.empty((c, e_pad), dtype=torch.float32, device=dev)
+             if with_times else None)
+    if c == 0:
+        return out, times, 0
+    n_cl, threads, k = launch_shape(c, e_pad, dev, cluster)
+    x = {n: v[0] for n, v in {**shared, **row}.items()}
+    lib = build.load()
+    with torch.cuda.device(dev):
+        stream = torch.cuda.current_stream(dev).cuda_stream
+        rc = lib.fifo_eval_launch(
+            _ptr(x["delta"]), _ptr(x["segst"]), _ptr(x["is_read"]),
+            _ptr(x["has_data"]), _ptr(x["data_idx"]), _ptr(x["end_bonus"]),
+            _ptr(x["rd_lat"]), _ptr(x["bp_idx"]), _ptr(x["bp_valid"]),
+            _ptr(x.get("bp_base")), _ptr(out), _ptr(times), _ptr(table_of_row),
+            _ptr(bounds), c, e_pad, int(max_iters), float(bound), n_cl,
+            threads, k, stream)
+    build.check(rc, "fifo_eval")
+    fifo_eval.launches += 1
+    fifo_eval.clusters[n_cl] = fifo_eval.clusters.get(n_cl, 0) + 1
+    fifo_eval.rows[c] = fifo_eval.rows.get(c, 0) + 1
+    return out, times, n_cl
+
+
+def _operands(names, xs, dtypes, shape) -> dict:
+    return {n: (x, dt, shape) for n, x, dt in zip(names, xs, dtypes)}
+
+
+_F32, _I32 = torch.float32, torch.int32
+_SHARED = _SHARED_F32 + ("data_idx",)
+_SHARED_TYPES = (_F32,) * 5 + (_I32,)
+_ROW = _ROW_F32 + ("bp_idx",)
+_ROW_TYPES = (_F32,) * 3 + (_I32,)
+
+
 def fifo_eval(delta, segst, is_read, has_data, data_idx, end_bonus,
               rd_lat, bp_idx, bp_valid, bp_base, *, max_iters: int,
               bound: float, with_times: bool = False,
@@ -188,33 +243,55 @@ def fifo_eval(delta, segst, is_read, has_data, data_idx, end_bonus,
     if dev.type != "cuda":
         raise ValueError(f"fifo_eval runs on cuda or cpu tensors, not {dev}")
     C, e_pad = rd_lat.shape
-    f32, i32 = torch.float32, torch.int32
-    shared = {n: (x, f32, (1, e_pad)) for n, x in zip(
-        _SHARED_F32, (delta, segst, is_read, has_data, end_bonus))}
-    shared["data_idx"] = (data_idx, i32, (1, e_pad))
-    row = {n: (x, f32, (C, e_pad))
-           for n, x in zip(_ROW_F32, (rd_lat, bp_valid, bp_base))}
-    row["bp_idx"] = (bp_idx, i32, (C, e_pad))
-    check_operands(e_pad, shared, row, dev)
-    out = torch.empty((C, OUT_LANES), dtype=f32, device=dev)
-    times = (torch.empty((C, e_pad), dtype=f32, device=dev)
-             if with_times else None)
-    if C == 0:
-        return out, times
-    n_cl, threads, k = launch_shape(C, e_pad, dev, cluster)
-    lib = build.load()
-    with torch.cuda.device(dev):
-        stream = torch.cuda.current_stream(dev).cuda_stream
-        rc = lib.fifo_eval_launch(
-            _ptr(delta), _ptr(segst), _ptr(is_read), _ptr(has_data),
-            _ptr(data_idx), _ptr(end_bonus), _ptr(rd_lat), _ptr(bp_idx),
-            _ptr(bp_valid), _ptr(bp_base), _ptr(out), _ptr(times),
-            C, e_pad, int(max_iters), float(bound), n_cl, threads, k,
-            stream)
-    build.check(rc, "fifo_eval")
-    fifo_eval.launches += 1
-    fifo_eval.clusters[n_cl] = fifo_eval.clusters.get(n_cl, 0) + 1
-    fifo_eval.rows[C] = fifo_eval.rows.get(C, 0) + 1
+    shared = _operands(_SHARED, (delta, segst, is_read, has_data, end_bonus,
+                                 data_idx), _SHARED_TYPES, (1, e_pad))
+    row = _operands(_ROW, (rd_lat, bp_valid, bp_base, bp_idx), _ROW_TYPES,
+                    (C, e_pad))
+    out, times, _ = _launch(shared, row, C, e_pad, max_iters, bound,
+                            with_times, cluster, dev)
+    return out, times
+
+
+def fifo_eval_hetero(delta, segst, is_read, has_data, data_idx, end_bonus,
+                     rd_lat, bp_idx, bp_valid, *, table_of_row, bounds,
+                     max_iters: int, with_times: bool = False,
+                     cluster: Optional[int] = None
+                     ) -> Tuple[torch.Tensor, Optional[torch.Tensor]]:
+    """K2's per-design-table mode.  Event tables ``(D, E*)``, one row per
+    design; per-config operands ``(C, E*)``; ``table_of_row`` (C,) int32
+    in ``[0, D)``; ``bounds`` (C,) float32, each row's deadlock bound.
+    The back-pressure add is the raw stream's 1, which the kernel adds
+    itself (no ``bp_base`` operand).  Returns what
+    :func:`fifo_eval` returns.  On CPU tensors it runs the plain
+    :func:`~repro_torch.kernels.fifo_eval.ref.fifo_eval_ref_hetero` on
+    each row's tables."""
+    dev = rd_lat.device
+    if dev.type == "cpu":
+        tor = table_of_row.long()
+        return fifo_eval_ref_hetero(
+            delta[tor], segst[tor], is_read[tor], has_data[tor],
+            data_idx[tor], end_bonus[tor], rd_lat, bp_idx, bp_valid, bounds,
+            max_iters=max_iters, with_times=with_times)
+    if dev.type != "cuda":
+        raise ValueError(f"fifo_eval_hetero runs on cuda or cpu tensors, "
+                         f"not {dev}")
+    C, e_pad = rd_lat.shape
+    D = delta.shape[0]
+    shared = _operands(_SHARED, (delta, segst, is_read, has_data, end_bonus,
+                                 data_idx), _SHARED_TYPES, (D, e_pad))
+    row = _operands(("rd_lat", "bp_valid", "bp_idx"),
+                    (rd_lat, bp_valid, bp_idx), (_F32, _F32, _I32),
+                    (C, e_pad))
+    row["table_of_row"] = (table_of_row, _I32, (C,))
+    row["bounds"] = (bounds, _F32, (C,))
+    out, times, n_cl = _launch(shared, row, C, e_pad, max_iters, 0.0,
+                               with_times, cluster, dev, table_of_row,
+                               bounds)
+    if C:
+        fifo_eval_hetero.launches += 1
+        fifo_eval_hetero.clusters[n_cl] = \
+            fifo_eval_hetero.clusters.get(n_cl, 0) + 1
+        fifo_eval_hetero.rows[C] = fifo_eval_hetero.rows.get(C, 0) + 1
     return out, times
 
 
@@ -224,3 +301,8 @@ fifo_eval.launches = 0
 fifo_eval.clusters = {}
 #: launches so far by rows per launch (reset it by assigning {})
 fifo_eval.rows = {}
+#: launches in the per-design-table mode so far (each also counts in
+#: ``fifo_eval.launches``), by cluster size and by rows per launch
+fifo_eval_hetero.launches = 0
+fifo_eval_hetero.clusters = {}
+fifo_eval_hetero.rows = {}

@@ -12,6 +12,10 @@ fixpoint differs between inners:
                    version on CPU tensors)
 ``use_ref=True``   the plain torch fixpoint (:mod:`.ref`), which is the
                    ``fixpoint`` backend
+
+:func:`make_hetero_batched_eval` is the cross-design closure: rows of many
+graphs in one K2 launch in its per-design-table mode (the plain
+``fifo_eval_ref_hetero`` on the CPU).
 """
 
 from __future__ import annotations
@@ -24,18 +28,22 @@ import torch
 
 from repro_torch.core.backends.base import (CONVERGED, DEADLOCK, UNRESOLVED,
                                             resolve_device)
-from repro_torch.core.backends.operands import (bram_count_torch,
+from repro_torch.core.backends.operands import (HeteroTables,
+                                                bram_count_torch,
                                                 cert_row_operands,
                                                 depth_operands,
                                                 get_cert_tables,
-                                                get_operands)
+                                                get_operands,
+                                                hetero_depth_operands)
 from repro_torch.kernels.fifo_eval.condensed import fifo_eval_condensed
-from repro_torch.kernels.fifo_eval.fifo_eval import fifo_eval
+from repro_torch.kernels.fifo_eval.fifo_eval import (fifo_eval,
+                                                     fifo_eval_hetero)
 from repro_torch.kernels.fifo_eval.ref import fifo_eval_plain
 
-#: dispatches per closure kind ("batched" / "condensed").  The cascade
-#: device-residency test asserts that a fully-certifying batch costs
-#: exactly ONE "condensed" dispatch and never touches the host verifier.
+#: dispatches per closure kind ("batched" / "hetero" / "condensed").  The
+#: cascade device-residency test asserts that a fully-certifying batch
+#: costs exactly ONE "condensed" dispatch and never touches the host
+#: verifier.
 DISPATCH_COUNTS: Counter = Counter()
 
 
@@ -133,5 +141,52 @@ def make_condensed_eval(cg, max_iters: int = 64, with_times: bool = False,
         if with_times:
             res = res + (times,)
         return _numpy(*res)
+
+    return call
+
+
+def make_hetero_batched_eval(max_iters: int = 64, device=None,
+                             mesh=None) -> Callable:
+    """Build the CROSS-DESIGN batched evaluation closure.
+
+    ``call(tables, table_of_row, depths) -> (latency i64, bram i64,
+    status i8)`` (numpy): ``tables`` a :class:`~repro_torch.core.backends
+    .operands.HeteroTables` on this closure's device, ``table_of_row``
+    (C,) and ``depths`` (C, F*) numpy, as
+    :func:`~repro_torch.core.backends.operands.stack_rows` makes them.
+    Every row reads its own design's tables, so one launch mixes rows
+    of many graphs: K2 in its per-design-table mode on a CUDA device, the
+    plain ``fifo_eval_ref_hetero`` on the CPU.  ``device=None`` means
+    ``cuda``.  ``mesh`` (row sharding over devices) is ROADMAP P11.
+    """
+    if mesh is not None:
+        raise NotImplementedError(
+            "hetero row sharding over devices is not ported yet: ROADMAP "
+            "P11 (multi-device row sharding)")
+    max_iters = int(max_iters)
+    dev = resolve_device(device)
+
+    def call(tables: HeteroTables, table_of_row: np.ndarray,
+             depth_matrix: np.ndarray
+             ) -> Tuple[np.ndarray, np.ndarray, np.ndarray]:
+        DISPATCH_COUNTS["hetero"] += 1
+        tor = torch.as_tensor(np.asarray(table_of_row, dtype=np.int32),
+                              device=dev)
+        depths = torch.as_tensor(np.asarray(depth_matrix, dtype=np.int32),
+                                 device=dev)
+        idx = tor.long()
+        rd_lat_e, bp_idx, bp_valid, structural, w = hetero_depth_operands(
+            tables, idx, depths)
+        out, _ = fifo_eval_hetero(
+            tables.delta, tables.seg_start, tables.is_read,
+            tables.has_data, tables.data_idx, tables.end_bonus, rd_lat_e,
+            bp_idx, bp_valid, table_of_row=tor, bounds=tables.bound[idx],
+            max_iters=max_iters)
+        lat = torch.maximum(out[:, 0], tables.taskless[idx])
+        status = _status(out, structural)
+        bram = bram_count_torch(depths, w).sum(dim=1, dtype=torch.int32)
+        lat, bram, status = _numpy(lat, bram, status)
+        return (np.asarray(np.rint(lat), dtype=np.int64),
+                np.asarray(bram, dtype=np.int64), status)
 
     return call

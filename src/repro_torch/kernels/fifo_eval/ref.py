@@ -2,6 +2,9 @@
 
 ``fifo_eval_plain``            what ``fifo_eval.cu`` computes (and the
                                ``fixpoint`` backend's fixpoint)
+``fifo_eval_ref_hetero``       what ``fifo_eval.cu`` computes in its
+                               per-design-table mode: every operand per
+                               row, a per-row bound (cross-design batches)
 ``fifo_eval_condensed_plain``  what ``condensed.cu`` computes: the same
                                fixpoint with per-row freezing, then the
                                fused exactness certificate
@@ -85,6 +88,45 @@ def fifo_eval_plain(delta, segst, is_read, has_data, data_idx, end_bonus,
         t_old = t[rows]
         t_new = _step(t_old, *args, rd_lat[rows], bp_idx[rows],
                       bp_valid[rows], bp_base[rows])
+        t[rows] = t_new
+        iters[rows] += 1
+        conv[rows] = (t_new == t_old).all(dim=1)
+    latency = (t + end_bonus).amax(dim=1)
+    over = t.amax(dim=1) > bound
+    out = torch.stack([latency, conv.float(), over.float(), iters.float()],
+                      dim=1)
+    return out, (t if with_times else None)
+
+
+def fifo_eval_ref_hetero(delta, segst, is_read, has_data, data_idx,
+                         end_bonus, rd_lat, bp_idx, bp_valid, bound, *,
+                         max_iters: int, with_times: bool = False
+                         ) -> Tuple[torch.Tensor, Optional[torch.Tensor]]:
+    """Cross-design variant of :func:`fifo_eval_plain` (the reference's
+    ``fifo_eval_ref_hetero``): every operand is per row, (C, E*) — each
+    row may come from a different graph padded to a shared envelope —
+    the deadlock bound is a (C,) f32 tensor, and the back-pressure add is
+    the raw stream's literal 1.  Returns (C, 4) f32 rows ``[latency,
+    converged, over_bound, iters]`` and, with ``with_times``, the final
+    times.  Same stop rule as :func:`fifo_eval_plain`, per row."""
+    C, E = rd_lat.shape
+    dev = rd_lat.device
+    bound = bound.to(torch.float32)
+    a_base = torch.where(segst > 0, torch.tensor(NEG, device=dev), delta)
+    bp_base = torch.ones_like(rd_lat)
+    per_row = (a_base, delta, segst, is_read, has_data, data_idx, rd_lat,
+               bp_idx, bp_valid, bp_base)
+    t = _step(torch.zeros((C, E), dtype=torch.float32, device=dev),
+              *per_row)
+    iters = torch.ones(C, dtype=torch.int32, device=dev)
+    conv = torch.zeros(C, dtype=torch.bool, device=dev)
+    while True:
+        active = ~conv & (iters < max_iters) & (t.amax(dim=1) <= bound)
+        rows = torch.nonzero(active).flatten()
+        if rows.numel() == 0:
+            break
+        t_old = t[rows]
+        t_new = _step(t_old, *(x[rows] for x in per_row))
         t[rows] = t_new
         iters[rows] += 1
         conv[rows] = (t_new == t_old).all(dim=1)

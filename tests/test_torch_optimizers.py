@@ -178,6 +178,8 @@ def test_eval_config_round_trips_with_pruning_flags():
     ref = RefEvalConfig(backend="pallas", local_bounds=True,
                         channel_bounds=True, certified_floor=True)
     assert EvalConfig.from_dict(ref.to_dict()).to_dict() == ref.to_dict()
-    for field, value in (("shards", 2), ("faults", "{}")):
-        with pytest.raises(NotImplementedError, match="ROADMAP"):
-            cfg.replace(**{field: value})
+    with pytest.raises(NotImplementedError, match="ROADMAP"):
+        cfg.replace(shards=2)
+    # a fault plan rides in the config, as in the reference
+    plan = cfg.replace(faults='{"faults": []}')
+    assert EvalConfig.from_dict(plan.to_dict()) == plan

@@ -18,7 +18,13 @@ aggressive rung) both kernels run on the same operands,
 must give equal outputs, and are timed with CUDA events in the order
 earlier, this, this, earlier.  This tree's K2 is then also timed at every
 cluster size its chooser allows for the shape (``by_cluster``), beside
-how many clusters of that size the card holds at once (``active``).
+how many clusters of that size the card holds at once (``active``), and
+in its per-design-table mode on the same work (one table, every row's
+table index 0 and its bound the shared one; ``table_mode_ms``), which
+must give the same outputs, and on the raw streams also with no
+``bp_base`` (the raw stream's add of 1, as a cross-design dispatch
+launches it; ``table_mode_unit_bp_ms``): the shared-table (null-pointer)
+path is the one the earlier tree's K2 is held against.
 
 K1 runs the same way on the aggressive rungs of gemm, FeedForward,
 k15mmseq and k15mmtree, on rows inside the routing box: the main path's
@@ -74,8 +80,11 @@ def main(argv=None) -> int:
     from repro_torch.kernels.fifo_eval.fifo_eval import (k2_cluster_sizes,
                                                          launch_shape)
     lib, pbuild = load_parent_lib(os.path.abspath(a.parent))
-    # an entry point with (cluster, threads, k) after the bound
-    parent_takes_shape = len(pbuild.SIGNATURES["fifo_eval_launch"]) == 20
+    # the entry point grew from 17 arguments by (cluster, threads, k)
+    # after the bound, then by (table_of_row, bounds) after the times
+    n_parent_args = len(pbuild.SIGNATURES["fifo_eval_launch"])
+    parent_takes_shape = n_parent_args >= 20
+    parent_tables = (None, None) if n_parent_args >= 22 else ()
     this_lib = build.load()
     dev = torch.device("cuda")
     if a.out:
@@ -110,16 +119,30 @@ def main(argv=None) -> int:
         stream = torch.cuda.current_stream(dev).cuda_stream
 
         p_shape = shape_ if parent_takes_shape else ()
+        # the per-design-table mode on the same work: one table
+        tor = torch.zeros(c, dtype=torch.int32, device=dev)
+        bounds = torch.full((c,), float(bound), dtype=torch.float32,
+                            device=dev)
 
         def parent():
             pbuild.check(lib.fifo_eval_launch(
-                *ptrs, p_out.data_ptr(), None, c, e_pad, 256, float(bound),
-                *p_shape, stream), "parent fifo_eval")
+                *ptrs, p_out.data_ptr(), None, *parent_tables, c, e_pad,
+                256, float(bound), *p_shape, stream), "parent fifo_eval")
 
-        def this(shape_=shape_):
+        def this(shape_=shape_, tables=(None, None)):
             build.check(this_lib.fifo_eval_launch(
-                *ptrs, out.data_ptr(), None, c, e_pad, 256, float(bound),
-                *shape_, stream), "fifo_eval")
+                *ptrs, out.data_ptr(), None, *tables, c, e_pad, 256,
+                float(bound), *shape_, stream), "fifo_eval")
+
+        def this_tables():
+            this(tables=(tor.data_ptr(), bounds.data_ptr()))
+
+        def this_hetero():
+            # as a cross-design dispatch calls it: no bp_base, add 1
+            build.check(this_lib.fifo_eval_launch(
+                *ptrs[:9], None, out.data_ptr(), None, tor.data_ptr(),
+                bounds.data_ptr(), c, e_pad, 256, float(bound), *shape_,
+                stream), "fifo_eval")
 
         parent()
         this()
@@ -129,6 +152,15 @@ def main(argv=None) -> int:
         slowest = int(out[:, 3].max())
         t_p1 = cs.cuda_ms(parent, REPS)
         t_n1 = cs.cuda_ms(this, REPS)
+        t_h = cs.cuda_ms(this_tables, REPS)
+        if not torch.equal(out, p_out):
+            raise AssertionError(f"{name} {shape}: per-design-table mode "
+                                 f"differs")
+        # a raw stream's back-pressure add is 1 everywhere
+        t_u = cs.cuda_ms(this_hetero, REPS) if g is not rb else None
+        if not torch.equal(out, p_out):
+            raise AssertionError(f"{name} {shape}: per-design-table mode "
+                                 f"without bp_base differs")
         t_n2 = cs.cuda_ms(this, REPS)
         t_p2 = cs.cuda_ms(parent, REPS)
         by_cluster = {}
@@ -144,6 +176,7 @@ def main(argv=None) -> int:
               "cluster": shape_[0], "threads": shape_[1], "k": shape_[2],
               "iters_max": slowest, "iters_sum": int(out[:, 3].sum()),
               "parent_ms": [t_p1, t_p2], "ms": [t_n1, t_n2],
+              "table_mode_ms": t_h, "table_mode_unit_bp_ms": t_u,
               "parent_us_per_iter": min(t_p1, t_p2) * 1e3 / slowest,
               "us_per_iter": min(t_n1, t_n2) * 1e3 / slowest,
               "speedup": min(t_p1, t_p2) / min(t_n1, t_n2),
