@@ -85,12 +85,37 @@ Phases, each printing JSON lines (any failure raises and exits nonzero):
    a CUDA graph of 20 launches (no host overhead) at the main path's 1
    and 8 rows and at the 512-row bucket, each also at max_iters 1 (the
    difference is the iterations after the first);
-9. where the time goes: phase 6's hetero campaign, and on k15mmtree a
-   fresh ``grouped_sa`` run, unseeded certification and ``vmap_search``,
-   under ``torch.profiler`` (device activity only: wall, device busy
-   time, idle share);
+9. where the time goes: phase 6's hetero campaign, phase 10's hetero
+   service, and on k15mmtree a fresh ``grouped_sa`` run, unseeded
+   certification and ``vmap_search``, under ``torch.profiler`` (device
+   activity only: wall, device busy time, idle share);
+10. the advisory service (``repro_torch.core.service``), 8 sessions:
+   gemm, FeedForward, k15mmtree (``make_design``'s sizes, E* = 26496)
+   and ``flowgnn_pna()`` (registered as a custom ``Design`` object), each
+   with ``grouped_sa`` and ``grouped_random``, budget 300, seed 0; every
+   session's history, frontier and hypervolume must equal a solo
+   ``FifoAdvisor(design, EvalConfig(backend="numpy")).run(...)``
+   (computed once each), and so must a numpy service's.
+   ``AdvisoryService(hetero=True)`` on the card (every full-solve row of
+   a round in one K2 launch in its per-design-table mode, which must
+   launch); the per-design service (each advisor's ``RungCascade``: K1
+   and K2 must launch); ``save_snapshot`` of the per-design registry,
+   ``load_snapshot`` into a fresh registry on the card, and ``grouped_sa``
+   on each restored named design with no fresh evaluation, equal to
+   numpy (the manifest must list flowgnn_pna under ``"skipped"``); then
+   ``python -m repro_torch.launch.serve --stdio --hetero --snapshot-dir
+   DIR`` in a fresh process on a scripted transcript (``hello``, two
+   ``open``, ``run``, two ``result``, ``snapshot``, ``shutdown``), equal
+   to the same script under ``--backend numpy --device cpu`` with the
+   wall-clock fields left out, and a second start on DIR, which must be
+   warm and answer from the restored cache; both card processes load the
+   kernels from ``REPRO_JIT_CACHE_DIR`` (a copy of phase 2's build) and
+   must not build.  Counters are set to 0 around each step; walls beside
+   numpy's, launches by rows, ``hetero_stats``, and the cold and warm
+   registry-ready seconds are printed;
 
-then the ``{"kernels": [...]}`` line, the ``nvidia-smi`` line, and last
+then the ``{"kernels": [...]}`` line (with each kernel's launches in
+phases 4, 5, 6 and 10), the ``nvidia-smi`` line, and last
 ``{"ok": true, "device": {...}}``.  Without a CUDA device, or outside a
 checkout of the repository, it exits nonzero and prints no result.
 """
@@ -153,6 +178,30 @@ SEARCH_BUDGET = 300
 PRUNING = {"local_bounds": True, "channel_bounds": True,
            "certified_floor": True}
 KNOWN_ANSWER_N = (8, 24, 64)
+#: phase 10: the service's designs (flowgnn_pna registered as a custom
+#: Design object), optimizers and budget; every session has seed 0
+SERVICE_DESIGNS = ("gemm", "FeedForward", "k15mmtree", "flowgnn_pna")
+SERVICE_OPTIMIZERS = ("grouped_sa", "grouped_random")
+SERVICE_BUDGET = 300
+#: phase 10: the serve CLI's scripted transcript
+SERVE_SCRIPT = (
+    {"op": "hello", "proto": 2},
+    {"op": "open", "design": "gemm", "optimizer": "grouped_sa",
+     "budget": SERVICE_BUDGET, "seed": 0},
+    {"op": "open", "design": "FeedForward", "optimizer": "grouped_random",
+     "budget": SERVICE_BUDGET, "seed": 0},
+    {"op": "run"},
+    {"op": "result", "session": "s0"},
+    {"op": "result", "session": "s1"},
+    {"op": "snapshot"},
+    {"op": "shutdown"})
+#: the warm restart's script: the first session again, from the snapshot
+SERVE_WARM_SCRIPT = SERVE_SCRIPT[:2] + (SERVE_SCRIPT[3], SERVE_SCRIPT[4],
+                                        SERVE_SCRIPT[-1])
+#: reply fields that carry wall-clock seconds: left out of the transcript
+#: comparison, and nothing else
+WALL_KEYS = frozenset({"retry_after_s", "eval_s", "wall_s", "trace_time_s",
+                       "runtime_s", "round_ewma_s"})
 
 _out_file = None
 
@@ -971,6 +1020,258 @@ def fuzz_phase() -> None:
         shutil.rmtree(tmp, ignore_errors=True)
 
 
+# ----------------------------------------------------------------- service
+def same_session(label: str, got, want) -> None:
+    """A session's history, frontier and hypervolume equal a solo run's
+    (``n_evals`` counts cache misses, which sessions on one design share,
+    so it is not compared)."""
+    import numpy as np
+    for k in ("configs", "latency", "bram", "deadlock"):
+        if not np.array_equal(getattr(got.result, k),
+                              getattr(want.result, k)):
+            raise AssertionError(f"{label}: history {k} differs from the "
+                                 f"solo numpy run")
+    if not np.array_equal(got.frontier_points, want.frontier_points) \
+            or not np.array_equal(got.frontier_configs,
+                                  want.frontier_configs) \
+            or got.hypervolume() != want.hypervolume():
+        raise AssertionError(f"{label}: frontier differs from the solo "
+                             f"numpy run")
+
+
+def service_mix():
+    return [(d, o) for d in SERVICE_DESIGNS for o in SERVICE_OPTIMIZERS]
+
+
+def run_service(dev, config, hetero: bool):
+    """Open the phase's 8 sessions on a fresh service and run them to
+    completion: (service, {(design, optimizer): DseResult})."""
+    from repro_torch.core.service import AdvisoryService
+    svc = AdvisoryService(config=config, hetero=hetero, device=dev)
+    sessions = {}
+    for d, o in service_mix():
+        obj = design_of(d) if d == "flowgnn_pna" else None
+        sessions[(d, o)] = svc.open_session(
+            d, optimizer=o, budget=SERVICE_BUDGET, seed=0, design_obj=obj)
+    svc.run_until_idle()
+    return svc, {k: s.dse_result() for k, s in sessions.items()}
+
+
+def strip_wall(obj):
+    if isinstance(obj, dict):
+        return {k: strip_wall(v) for k, v in obj.items()
+                if k not in WALL_KEYS}
+    if isinstance(obj, list):
+        return [strip_wall(v) for v in obj]
+    return obj
+
+
+def serve(args, script, env, cwd: str) -> tuple:
+    """``python -m repro_torch.launch.serve --stdio ARGS`` in a fresh
+    process in ``cwd``, fed ``script``: (frames, stderr, seconds)."""
+    t0 = time.perf_counter()
+    r = subprocess.run(
+        [sys.executable, "-m", "repro_torch.launch.serve", "--stdio",
+         *args], input="".join(json.dumps(m) + "\n" for m in script),
+        cwd=cwd, env=env, capture_output=True, text=True, timeout=600)
+    if r.returncode != 0:
+        raise AssertionError(f"serve {args} exited {r.returncode}:\n"
+                             f"{r.stdout[-3000:]}\n{r.stderr[-3000:]}")
+    frames = [json.loads(x) for x in r.stdout.splitlines()]
+    return frames, r.stderr, time.perf_counter() - t0
+
+
+def serve_line(stderr: str, what: str) -> str:
+    lines = [x for x in stderr.splitlines() if x.startswith(what)]
+    if len(lines) != 1:
+        raise AssertionError(f"serve: expected one {what!r} line in\n"
+                             f"{stderr[-3000:]}")
+    return lines[0]
+
+
+def ready_seconds(stderr: str) -> float:
+    return float(re.match(r"registry ready in ([0-9.]+)s",
+                          serve_line(stderr, "registry ready")).group(1))
+
+
+def serve_cli(tmp: str) -> dict:
+    """Step 4: the serve CLI in fresh processes.  The card's server
+    (``--hetero``, default ``--backend cuda --device cuda``) must answer
+    the scripted transcript as the numpy server on the CPU does, once the
+    wall-clock fields are left out; a second start on the same snapshot
+    directory must be warm and answer from the restored cache.  Each
+    server runs in a directory of its own with ``--snapshot-dir snap``,
+    so the replies name the same directory.  Both card processes build
+    into ``REPRO_JIT_CACHE_DIR``, seeded with a copy of the library phase
+    2 built: each must load it, neither may build."""
+    import shutil
+    from repro_torch.kernels.fifo_eval import build
+    cache = os.path.join(tmp, "jit-cache")
+    lib = build.BUILD_INFO["path"]
+    os.makedirs(os.path.join(cache, build.source_hash()))
+    shutil.copy(lib, os.path.join(cache, build.source_hash()))
+    env = dict(os.environ, PYTHONPATH=SRC + os.pathsep
+               + os.environ.get("PYTHONPATH", ""))
+    env.pop("REPRO_TORCH_BUILD_DIR", None)
+    card_env = dict(env, REPRO_JIT_CACHE_DIR=cache)
+    card_dir, numpy_dir = (os.path.join(tmp, d) for d in ("card", "numpy"))
+    os.makedirs(card_dir)
+    os.makedirs(numpy_dir)
+    card_args = ["--hetero", "--snapshot-dir", "snap"]
+    got, err, wall = serve(card_args, SERVE_SCRIPT, card_env, card_dir)
+    want, ref_err, ref_wall = serve(
+        ["--backend", "numpy", "--device", "cpu", "--snapshot-dir",
+         "snap"], SERVE_SCRIPT, env, numpy_dir)
+    if strip_wall(got) != strip_wall(want):
+        raise AssertionError(f"serve: the card's transcript differs from "
+                             f"numpy's:\n{got}\n{want}")
+    replies = [f for f in got if "event" not in f]
+    if [f.get("ok") for f in replies] != [True] * len(SERVE_SCRIPT):
+        raise AssertionError(f"serve: a request failed: {replies}")
+    again, warm_err, warm_wall = serve(card_args, SERVE_WARM_SCRIPT,
+                                       card_env, card_dir)
+    warm = [f for f in again if "event" not in f]
+    if "(warm, 2 restored)" not in serve_line(warm_err, "registry ready"):
+        raise AssertionError(f"serve: the second start is not warm:\n"
+                             f"{warm_err[-3000:]}")
+    if warm[3]["result"]["n_evals"] != 0 \
+            or warm[3]["result"]["frontier"] != \
+            replies[4]["result"]["frontier"]:
+        raise AssertionError("serve: the warm start's answer differs")
+    kernels = []
+    for e in (err, warm_err):
+        line = serve_line(e, "kernels ")
+        if not line.startswith("kernels loaded") or cache not in line:
+            raise AssertionError(f"serve: the kernels were not loaded "
+                                 f"from {cache}: {line}")
+        kernels.append(line)
+    out = {"transcript_frames": len(got), "equal_to_numpy": True,
+           "cold_wall_s": wall, "numpy_wall_s": ref_wall,
+           "warm_wall_s": warm_wall,
+           "registry_ready_cold_s": ready_seconds(err),
+           "registry_ready_warm_s": ready_seconds(warm_err),
+           "registry_ready_numpy_s": ready_seconds(ref_err),
+           "kernels": kernels,
+           "run_rounds": replies[3]["rounds"],
+           "warm_n_evals": warm[3]["result"]["n_evals"]}
+    emit({"phase": "service", "step": "serve_cli", **out})
+    return out
+
+
+def service_phase(dev) -> dict:
+    """Phase 10: the advisory service on the card.  Returns the launches
+    of the hetero and the per-design services and the hetero stats."""
+    import dataclasses
+    import shutil
+    import tempfile
+    from repro_torch.core import EvalConfig, FifoAdvisor
+    from repro_torch.core.service import load_snapshot, save_snapshot
+    cuda, numpy_cfg = EvalConfig(backend="cuda"), EvalConfig(backend="numpy")
+    t0 = time.perf_counter()
+    solo = {(d, o): FifoAdvisor(design_of(d), numpy_cfg).run(
+        o, budget=SERVICE_BUDGET, seed=0) for d, o in service_mix()}
+    solo_wall = time.perf_counter() - t0
+    (_, ref), numpy_wall = wall_of(lambda: run_service(dev, numpy_cfg,
+                                                       False))
+    for key, dse in ref.items():
+        same_session(f"numpy service {key}", dse, solo[key])
+    kernels = ("fifo_eval", "fifo_eval_condensed", "fifo_eval_hetero")
+    totals = dict.fromkeys(kernels, 0)
+    out = {}
+
+    def report(step, svc, results, wall, counts, **extra):
+        for key, dse in results.items():
+            same_session(f"{step} service {key}", dse, solo[key])
+        for k in kernels:
+            totals[k] += counts[k]
+        regs = svc.registry
+        escalated = sum(regs[n].evaluator.stats.n_fallbacks for n in regs)
+        stats = svc.batcher.stats()
+        emit({"phase": "service", "step": step,
+              "sessions": len(results),
+              "evals": sum(d.result.n_evals for d in results.values()),
+              "rounds": svc.batcher.rounds, "wall_s": wall,
+              "numpy_wall_s": numpy_wall, "solo_numpy_wall_s": solo_wall,
+              "equal_to_numpy": True,
+              "launches": {k: counts[k] for k in kernels},
+              "fifo_eval_launches_by_rows": counts["fifo_eval_rows"],
+              "fifo_eval_hetero_launches_by_rows":
+                  counts["fifo_eval_hetero_rows"],
+              "fifo_eval_hetero_launches_by_cluster":
+                  counts["fifo_eval_hetero_clusters"],
+              "fifo_eval_condensed_launches_by_rows":
+                  counts["fifo_eval_condensed_rows"],
+              "escalated_per_design": escalated,
+              "hetero_stats": stats.get("hetero_stats"), **extra})
+        out[step] = {"counts": counts, "stats": stats.get("hetero_stats")}
+
+    # 1. every session's full-solve rows of a round in one K2 launch in
+    # its per-design-table mode
+    (svc, results), wall, counts = run_step(
+        lambda: run_service(dev, cuda, True))
+    if counts["fifo_eval_hetero"] == 0:
+        raise AssertionError("the hetero service launched no K2 in its "
+                             "per-design-table mode")
+    report("hetero", svc, results, wall, counts,
+           e_pad=svc.batcher.router.hetero.e_pad)
+    svc.close()
+
+    # 2. per-design: each advisor's RungCascade, so K1 and K2
+    (svc, results), wall, counts = run_step(
+        lambda: run_service(dev, cuda, False))
+    for k in ("fifo_eval", "fifo_eval_condensed"):
+        if counts[k] == 0:
+            raise AssertionError(f"the per-design service never launched "
+                                 f"{k}")
+    report("per_design", svc, results, wall, counts)
+
+    # 3. warm restart from a snapshot of the per-design registry
+    tmp = tempfile.mkdtemp(prefix="chip_smoke_service_")
+    try:
+        snap = os.path.join(tmp, "snapshot")
+        manifest, save_wall = wall_of(lambda: save_snapshot(svc.registry,
+                                                            snap))
+        svc.close()
+        if manifest["skipped"] != ["flowgnn_pna"]:
+            raise AssertionError(f"snapshot skipped {manifest['skipped']}")
+        reg, load_wall = wall_of(lambda: load_snapshot(snap, device=dev))
+        named = [d for d in SERVICE_DESIGNS if d != "flowgnn_pna"]
+        if sorted(reg.names()) != sorted(named):
+            raise AssertionError(f"restored {reg.names()}")
+
+        def warm_runs():
+            return {d: reg[d].run("grouped_sa", budget=SERVICE_BUDGET,
+                                  seed=0) for d in named}
+        warm, warm_wall, counts = run_step(warm_runs)
+        for d, dse in warm.items():
+            if dse.result.n_evals != 0:
+                raise AssertionError(f"warm {d}: {dse.result.n_evals} "
+                                     f"fresh evaluations")
+            same_session(f"warm {d}", dse, solo[(d, "grouped_sa")])
+
+        def cold_registry():
+            from repro_torch.core.service import DesignRegistry
+            cold = DesignRegistry(cuda, device=dev)
+            for d in named:
+                cold.register(d)
+            return cold
+        _, cold_wall = wall_of(cold_registry)
+        emit({"phase": "service", "step": "warm_restart",
+              "restored": reg.names(), "skipped": manifest["skipped"],
+              "save_s": save_wall, "registry_ready_warm_s": load_wall,
+              "registry_ready_cold_s": cold_wall,
+              "grouped_sa_wall_s": warm_wall, "n_evals": 0,
+              "launches": {k: counts[k] for k in kernels},
+              "equal_to_numpy": True})
+
+        # 4. the serve CLI, cold and warm, against numpy's
+        out["serve_cli"] = serve_cli(tmp)
+    finally:
+        shutil.rmtree(tmp, ignore_errors=True)
+    out["totals"] = totals
+    return out
+
+
 # ------------------------------------------------------------------ timing
 def cuda_ms(fn, reps: int) -> float:
     import torch
@@ -1057,7 +1358,8 @@ def emit_profile(design: str, step: str, wall: float, busy, top) -> None:
 
 def profile_paths(dev) -> None:
     """Where the time goes: phase 6's hetero campaign (construction
-    included), then for each design of :data:`PROFILE_DESIGNS` a fresh
+    included), phase 10's hetero service (construction included), then
+    for each design of :data:`PROFILE_DESIGNS` a fresh
     ``grouped_sa`` run (trace, condensation and search) and, on a fresh
     advisor, phase 5's unseeded certification and ``vmap_search``, each
     under ``torch.profiler``."""
@@ -1069,6 +1371,10 @@ def profile_paths(dev) -> None:
         FAST_DESIGNS, eval=EvalConfig(backend="cuda"), hetero=True,
         workers=0), device=dev).run())
     emit_profile("FAST_DESIGNS", "hetero_campaign", wall, busy, top)
+    (svc, _), wall, busy, top = profiled(lambda: run_service(
+        dev, EvalConfig(backend="cuda"), True))
+    svc.close()
+    emit_profile("SERVICE_DESIGNS", "hetero_service", wall, busy, top)
     for name in PROFILE_DESIGNS:
         _, wall, busy, top = profiled(lambda: FifoAdvisor(
             design_of(name), EvalConfig(backend="cuda")).run(
@@ -1313,6 +1619,10 @@ def run() -> int:
     profile_paths(dev)
     emit({"phase": "profile_done",
           "seconds": round(time.perf_counter() - t0, 3)})
+    t0 = time.perf_counter()
+    service = service_phase(dev)
+    emit({"phase": "service_done",
+          "seconds": round(time.perf_counter() - t0, 3)})
     sources = {"fifo_eval": ("src/repro_torch/csrc/fifo_eval.cu",
                              "src/repro/kernels/fifo_eval/fifo_eval.py:49"),
                "fifo_eval_condensed": (
@@ -1354,6 +1664,18 @@ def run() -> int:
                 "hetero_launches_by_cluster":
                     counts["fifo_eval_hetero_clusters"],
                 "hetero_stats": campaign["stats"]}
+        # the service phase: both services' launches (K2's
+        # per-design-table launches apart, under "fifo_eval")
+        extra["service_launches"] = service["totals"][name]
+        extra["service_launches_by_rows"] = {
+            step: service[step]["counts"][name + "_rows"]
+            for step in ("hetero", "per_design")}
+        if name == "fifo_eval":
+            extra["service_hetero_launches"] = \
+                service["totals"]["fifo_eval_hetero"]
+            extra["service_hetero_launches_by_rows"] = \
+                service["hetero"]["counts"]["fifo_eval_hetero_rows"]
+            extra["service_hetero_stats"] = service["hetero"]["stats"]
         kernels.append({
             "name": name, "route": "cuda", "source": source,
             "replaces": replaces, "launches": launches[name],

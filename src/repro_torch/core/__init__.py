@@ -1,15 +1,17 @@
 """FIFOAdvisor core of the port: trace, event graph, condensation, batched
 evaluation (numpy worklist, plain torch fixpoint, CUDA kernels), the
 optimizers, deadlock certification and channel bounds, the DES oracle,
-and the advisor."""
+and the advisor.  Campaigns live in :mod:`repro_torch.core.campaign` and
+the advisory service in :mod:`repro_torch.core.service`."""
 
 from repro_torch.core.advisor import Baseline, DseResult, FifoAdvisor
 from repro_torch.core.backends import (ConfigCache, EvalBackend,
-                                       get_backend, register_backend)
+                                       available_backends, get_backend,
+                                       register_backend)
 from repro_torch.core.condense import (CondensedGraph, condense,
                                        condense_auto, expand_times,
                                        verify_rows)
-from repro_torch.core.config import EvalConfig
+from repro_torch.core.config import EvalConfig, resolve_config
 from repro_torch.core.deadlock import (CertificationResult, WaitForGraph,
                                        certify_min_depths, deadlock_blame,
                                        extract_wait_graph)
@@ -23,8 +25,8 @@ __all__ = [
     "Baseline", "BatchedEvaluator", "CertificationResult", "CondensedGraph",
     "ConfigCache", "Design", "DseResult", "EvalBackend", "EvalConfig", "Fifo",
     "FifoAdvisor", "SimGraph", "SimResult", "Task", "Trace", "WaitForGraph",
-    "build_simgraph", "certify_min_depths", "collect_trace", "condense",
-    "condense_auto", "deadlock_blame", "evaluate_np", "expand_times",
-    "extract_wait_graph", "get_backend", "register_backend", "simulate",
-    "verify_rows",
+    "available_backends", "build_simgraph", "certify_min_depths",
+    "collect_trace", "condense", "condense_auto", "deadlock_blame",
+    "evaluate_np", "expand_times", "extract_wait_graph", "get_backend",
+    "register_backend", "resolve_config", "simulate", "verify_rows",
 ]

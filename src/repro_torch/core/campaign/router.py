@@ -20,8 +20,8 @@ everything that happens between that screening and ``observe()``:
 
 The router is deliberately ignorant of *who* is asking: the campaign
 scheduler routes :class:`~repro_torch.core.campaign.scheduler.CampaignTask`
-batches, and the reference's advisory service routes client-session
-batches through the same code (its port is ROADMAP P12), so both inherit
+batches and the advisory service (:mod:`repro_torch.core.service`) routes
+client-session batches through the exact same code, so both inherit
 the same exactness guarantee — every path is bit-identical to evaluating each
 request alone.
 """
@@ -67,8 +67,8 @@ class RoundRouter:
     ``designs`` maps a design key to any object exposing ``.evaluator``
     (a :class:`~repro_torch.core.simulate.BatchedEvaluator`) and ``.graph``
     (its :class:`~repro_torch.core.simgraph.SimGraph`) — the campaign's
-    ``DesignContext`` (and a service's ``FifoAdvisor`` registry entries)
-    qualify.  ``pool`` (a
+    ``DesignContext`` and the service's ``FifoAdvisor`` registry entries
+    both qualify.  ``pool`` (a
     :class:`~repro_torch.core.campaign.pool.WorkerPool`) and ``hetero`` (a
     :class:`~repro_torch.core.backends.HeteroDispatcher`) are optional engines
     the owner wires in and may swap at any time between rounds.

@@ -14,14 +14,21 @@ the torch ``device`` and per-design ``upper_bounds`` arrays on
 (the same schedule format as the reference's).  ``shards``, whose
 machinery is not ported yet, is kept so reference configs round-trip,
 but raises ``NotImplementedError`` when set.
+
+The legacy keyword spellings (``backend=``, ``max_iters=``,
+``use_pallas=``, ...) still work on the service's constructors through
+:func:`resolve_config`, which maps them 1:1 onto an ``EvalConfig`` and
+emits a :class:`DeprecationWarning`; :func:`same_config` compares two
+configs with the backend aliases mapped to their canonical names.
 """
 
 from __future__ import annotations
 
 import dataclasses
+import warnings
 from typing import Optional
 
-__all__ = ["EvalConfig"]
+__all__ = ["EvalConfig", "resolve_config", "same_config"]
 
 #: field -> (value that means "off", ROADMAP item that ports it)
 _NOT_PORTED = {
@@ -99,3 +106,58 @@ class EvalConfig:
     def replace(self, **changes) -> "EvalConfig":
         """A copy with the given fields replaced."""
         return dataclasses.replace(self, **changes)
+
+
+#: legacy keyword -> EvalConfig field (1:1 except use_pallas)
+_LEGACY_KEYS = ("backend", "max_iters", "condense", "shards",
+                "occupancy_cap", "local_bounds", "certified_floor",
+                "use_pallas")
+
+
+def resolve_config(config: Optional[EvalConfig], legacy: dict,
+                   where: str, default: Optional[EvalConfig] = None,
+                   stacklevel: int = 3) -> EvalConfig:
+    """Merge deprecated keyword arguments into an :class:`EvalConfig`.
+
+    ``legacy`` is the consumer's ``**kwargs`` dict.  Unknown keys raise
+    ``TypeError`` (same contract as a plain signature); known legacy
+    keys emit one :class:`DeprecationWarning` and map onto a fresh
+    config (``use_pallas=True`` maps to ``backend="pallas"``, the alias
+    of ``"cuda"``).  Passing both ``config`` and legacy keywords is an
+    error — silently merging them would hide which one wins.
+    """
+    unknown = [k for k in legacy if k not in _LEGACY_KEYS]
+    if unknown:
+        raise TypeError(
+            f"{where}() got unexpected keyword argument(s) "
+            f"{sorted(unknown)}")
+    if not legacy:
+        return config if config is not None else (default or EvalConfig())
+    if config is not None:
+        raise TypeError(
+            f"{where}(): pass either config=EvalConfig(...) or the "
+            f"deprecated keyword(s) {sorted(legacy)}, not both")
+    warnings.warn(
+        f"{where}({', '.join(sorted(legacy))}=...) is deprecated; pass "
+        f"config=EvalConfig(...) instead (the keywords map 1:1; "
+        f"use_pallas=True becomes backend='pallas')",
+        DeprecationWarning, stacklevel=stacklevel)
+    base = default or EvalConfig()
+    fields = {k: v for k, v in legacy.items() if k != "use_pallas"}
+    if legacy.get("use_pallas"):
+        fields["backend"] = "pallas"
+    return dataclasses.replace(base, **fields)
+
+
+#: reference backend spellings -> this package's canonical names
+_BACKEND_ALIASES = {"pallas": "cuda", "jax": "fixpoint"}
+
+
+def same_config(a: EvalConfig, b: EvalConfig) -> bool:
+    """Whether two configs mean the same evaluation: equal field by
+    field once ``"pallas"`` reads ``"cuda"`` and ``"jax"`` reads
+    ``"fixpoint"`` (a reference snapshot records the reference's
+    spelling of the same kernel backend)."""
+    def canon(c: EvalConfig) -> EvalConfig:
+        return c.replace(backend=_BACKEND_ALIASES.get(c.backend, c.backend))
+    return canon(a) == canon(b)

@@ -7,19 +7,23 @@ delay a dispatch, abort a snapshot save mid-write — installed through
 :class:`~repro_torch.core.config.EvalConfig` (``faults=`` holds the plan's
 JSON) or the ``REPRO_FAULTS`` environment variable, and consulted at
 fixed injection points.  The plan format, the kinds and the variable are
-the reference package's, so one plan file drives both packages; this
-package consults the worker-pool kinds (``crash_worker``,
-``hang_worker``, ``delay_dispatch``) in its campaign pool, and the
-service and snapshot kinds wait for the advisory service (ROADMAP P12).
+the reference package's, so one plan file drives both packages: the
+worker-pool kinds (``crash_worker``, ``hang_worker``,
+``delay_dispatch``) fire in the campaign pool, ``hang_eval`` in the
+service's cross-session batcher, ``corrupt_snapshot`` and ``crash_save``
+in the snapshot writer, and ``drop_conn`` in the server's connection
+sender (:mod:`repro_torch.launch.serve`).
 
 Everything is deterministic: a plan is a finite, ordered tuple of
 :class:`Fault` records with explicit trigger indices, each fault fires
 at most once, and :meth:`FaultPlan.random` derives a schedule from a
 seed so the chaos harness (``python -m repro_torch.launch.fuzz --mode
 chaos``) can replay any failing schedule exactly.  The recovery
-machinery the plan exercises (lane respawn + requeue) is held to the
-repo-wide bar: the final result under an injected fault schedule must be
-bit-identical to the fault-free run.
+machinery the plan exercises (lane respawn + requeue, E_TIMEOUT
+deadlines, snapshot quarantine) is held to the repo-wide bar: the final
+result under an injected fault schedule must be bit-identical to the
+fault-free run (or, where work is genuinely lost, fail loudly with a
+stable error code and keep the evaluated prefix).
 """
 
 from __future__ import annotations

@@ -14,8 +14,10 @@ Two drivers consume the generator:
   :class:`OptResult`.
 * :meth:`Optimizer.propose` / :meth:`Optimizer.observe` — the stepwise
   API; a scheduler interleaves many optimizers and routes their requests
-  into shared dispatches (the reference's campaigns do so across designs;
-  their port is ROADMAP P10).
+  into shared dispatches (the campaigns of
+  :mod:`repro_torch.core.campaign` do so across designs, and the
+  advisory service of :mod:`repro_torch.core.service` across client
+  sessions).
 
 Both drivers see identical request/result sequences, so they produce
 identical histories and frontiers for the same seed.

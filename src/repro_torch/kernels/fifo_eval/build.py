@@ -7,6 +7,14 @@ directory (``build/repro_torch/<source hash>/`` at the root of the
 checkout, or ``$REPRO_TORCH_BUILD_DIR``) is keyed on a hash of the sources
 and flags, so an edit to any source rebuilds and an unchanged tree loads
 the library it built before.  A failed build raises; nothing falls back.
+
+This is also the port's compile cache, the counterpart of the reference's
+``repro/core/backends/jaxcfg.py`` (which points jax's persistent
+compilation cache at ``$REPRO_JIT_CACHE_DIR``): the kernels compile
+nothing per shape, so one build per source hash is all there is to keep.
+When ``REPRO_JIT_CACHE_DIR`` is set and ``REPRO_TORCH_BUILD_DIR`` is not,
+the build goes there, so a restarted server or campaign that shares the
+reference's cache variable loads the library instead of rebuilding it.
 """
 
 from __future__ import annotations
@@ -45,10 +53,17 @@ _lib: Optional[ctypes.CDLL] = None
 BUILD_INFO: dict = {}
 
 
+#: the reference's persistent-compilation-cache variable
+JIT_CACHE_ENV = "REPRO_JIT_CACHE_DIR"
+
+
 def build_dir() -> Path:
-    env = os.environ.get("REPRO_TORCH_BUILD_DIR")
-    if env:
-        return Path(env)
+    """``$REPRO_TORCH_BUILD_DIR``, else ``$REPRO_JIT_CACHE_DIR``, else
+    ``build/repro_torch`` at the root of the checkout."""
+    for var in ("REPRO_TORCH_BUILD_DIR", JIT_CACHE_ENV):
+        env = os.environ.get(var)
+        if env:
+            return Path(env).expanduser()
     return Path(__file__).resolve().parents[4] / "build" / "repro_torch"
 
 

@@ -8,7 +8,15 @@ crashes, hangs past the receive deadline, a lane death in the middle of
 ``submit``, inline escalation after the retries, a wedged worker at
 ``close`` — the pooled results are bit-identical to the fault-free
 evaluation (the port's numpy evaluator and the reference's), and no
-worker outlives the pool.  The service's kinds wait for ROADMAP P12."""
+worker outlives the pool.  The service's kinds behave as the
+reference's, on the port's service (``backend="cuda"`` on
+``device="cpu"``, the kernels' plain versions): ``hang_eval`` fails only
+the victim session with ``E_TIMEOUT`` and leaves its peers
+bit-identical; ``attach`` replays the exact event suffix, also after a
+``drop_conn`` closed the connection; ``crash_save`` leaves the previous
+snapshot loadable and ``corrupt_snapshot`` quarantines only the damaged
+design.  Without a CUDA device, the service, the registry and the serve
+CLI raise unless asked for the CPU."""
 
 import multiprocessing as mp
 import threading
@@ -21,6 +29,7 @@ from repro.core.faults import FAULT_KINDS as REF_FAULT_KINDS
 from repro.core.faults import FaultPlan as RefFaultPlan
 from repro.core.faults import resolve_plan as ref_resolve_plan
 from repro.core.simgraph import build_simgraph as ref_build_simgraph
+from repro.core import FifoAdvisor as RefAdvisor
 from repro.core.simulate import BatchedEvaluator as RefEvaluator
 from repro.designs import make_design as ref_make_design
 
@@ -252,3 +261,262 @@ def test_campaign_frontiers_identical_under_crashes():
     assert camp.pool_stats["respawns"] >= 1
     assert camp.faults.all_fired
     assert mp.active_children() == []
+
+
+# ------------------------------------------------------ service deadlines
+SERVICE_CFG = EvalConfig(backend="cuda", max_iters=64)
+
+
+def _service(**kw):
+    from repro_torch.core.service import AdvisoryService
+    return AdvisoryService(config=SERVICE_CFG, device="cpu", **kw)
+
+
+def _strip_wall(events):
+    wall = ("eval_s", "wall_s", "trace_time_s", "runtime_s")
+    return [{k: v for k, v in e.items() if k not in wall} for e in events]
+
+
+def test_deadline_times_out_victim_and_isolates_peer():
+    from repro.core.service import AdvisoryService as RefService
+    out = {}
+    for name, make, plan_cls, fault in (
+            ("port", _service, FaultPlan, Fault),
+            ("ref", RefService, RefFaultPlan, None)):
+        if fault is None:
+            from repro.core.faults import Fault as fault
+        plan = plan_cls([fault("hang_eval", at=1, target="gemm",
+                               value=0.2)])
+        with make(faults=plan) as svc:
+            victim = svc.open_session("gemm", optimizer="grouped_sa",
+                                      budget=BUDGET, seed=0,
+                                      deadline_s=0.05)
+            peer = svc.open_session("FeedForward", optimizer="grouped_sa",
+                                    budget=BUDGET, seed=1)
+            svc.run_until_idle()
+            assert victim.state == "failed"
+            assert victim.error_code == "E_TIMEOUT"
+            assert victim.rounds == 2
+            assert victim.dse_result().frontier_points.shape[0] >= 1
+            assert peer.state == "done"
+            out[name] = (victim.dse_result(), peer.dse_result(),
+                         _strip_wall(svc.drain_events()))
+        assert plan.all_fired
+    solo = RefAdvisor(ref_make_design("FeedForward")).run(
+        "grouped_sa", budget=BUDGET, seed=1)
+    port, ref = out["port"], out["ref"]
+    np.testing.assert_array_equal(port[1].frontier_points,
+                                  solo.frontier_points)
+    for got, want in zip(port[:2], ref[:2]):
+        np.testing.assert_array_equal(got.result.configs,
+                                      want.result.configs)
+        np.testing.assert_array_equal(got.result.latency,
+                                      want.result.latency)
+        np.testing.assert_array_equal(got.frontier_points,
+                                      want.frontier_points)
+    assert port[2] == ref[2]
+
+
+def test_timeout_surfaces_in_events_and_status():
+    plan = FaultPlan([Fault("hang_eval", at=0, target="gemm", value=0.2)])
+    with _service(faults=plan) as svc:
+        sess = svc.open_session("gemm", budget=BUDGET, seed=0,
+                                deadline_s=0.05)
+        svc.run_until_idle()
+        events = sess.drain_events()
+        assert events[-1]["event"] == "failed"
+        assert events[-1]["code"] == "E_TIMEOUT"
+        assert sess.status()["code"] == "E_TIMEOUT"
+        assert sess.status()["deadline_s"] == 0.05
+
+
+# ---------------------------------------------------- reconnect + replay
+def test_attach_replays_exact_event_suffix():
+    from repro_torch.core.service import ProtocolHandler
+    with _service() as svc:
+        handler = ProtocolHandler(svc)
+        sess = svc.open_session("gemm", budget=BUDGET, seed=0,
+                                request_id="open-77")
+        svc.run_until_idle(max_rounds=2)
+        seen = sess.drain_events()
+        last_seq = seen[-1]["seq"] if seen else -1
+        again = svc.open_session("gemm", budget=BUDGET, seed=0,
+                                 request_id="open-77")
+        assert again is sess
+        svc.run_until_idle()
+        out = handler.handle({"op": "attach", "session": sess.id,
+                              "after_seq": last_seq})
+        assert out["ok"] and out["replay_complete"]
+        stream = seen + out["events"]
+        assert [e["seq"] for e in stream] == list(range(len(stream)))
+        assert stream[-1]["event"] == "done"
+        assert sess.drain_events() == []
+        svc.release(sess.id)
+        assert "open-77" not in svc._open_requests
+        fresh = svc.open_session("gemm", budget=BUDGET, seed=0,
+                                 request_id="open-77")
+        assert fresh is not sess
+    from repro.core.service import AdvisoryService as RefService
+    with RefService() as ref:
+        rs = ref.open_session("gemm", budget=BUDGET, seed=0)
+        ref.run_until_idle()
+        assert _strip_wall(rs.events_after(-1)) == _strip_wall(stream)
+
+
+def test_drop_conn_then_attach_replays_the_stream():
+    """``drop_conn`` closes the connection after the server's second
+    frame; the client reconnects and ``attach`` replays the session's
+    whole event stream — the reference server's, frame for frame."""
+    import asyncio
+    import json
+
+    from repro.launch.serve import AdvisoryServer as RefServer
+    from repro_torch.launch.serve import AdvisoryServer
+
+    async def scenario(server):
+        tcp = await server.serve_tcp("127.0.0.1", 0)
+        port = tcp.sockets[0].getsockname()[1]
+
+        async def connect():
+            return await asyncio.open_connection("127.0.0.1", port)
+
+        async def rpc(reader, writer, msg):
+            try:
+                writer.write((json.dumps(msg) + "\n").encode())
+                await writer.drain()
+                while True:
+                    line = await asyncio.wait_for(reader.readline(), 30)
+                    if not line:
+                        return None           # the server hung up
+                    frame = json.loads(line)
+                    if "event" not in frame:
+                        return frame
+            except ConnectionError:
+                return None                   # the server hung up
+
+        reader, writer = await connect()
+        opened = await rpc(reader, writer, {
+            "op": "open", "design": "gemm", "optimizer": "grouped_random",
+            "budget": BUDGET, "seed": 0})
+        sid = opened["session"]
+        dropped = None
+        for _ in range(4):
+            dropped = await rpc(reader, writer,
+                                {"op": "status", "session": sid})
+            if dropped is None:
+                break
+        assert dropped is None, "drop_conn never fired"
+        writer.close()
+        reader, writer = await connect()
+        for _ in range(2000):
+            st = await rpc(reader, writer, {"op": "status",
+                                            "session": sid})
+            if st["state"] == "done":
+                break
+            await asyncio.sleep(0.005)
+        out = await rpc(reader, writer, {"op": "attach", "session": sid,
+                                         "after_seq": -1})
+        await rpc(reader, writer, {"op": "shutdown"})
+        writer.close()
+        tcp.close()
+        await tcp.wait_closed()
+        await server.aclose()
+        return out
+
+    got = asyncio.run(asyncio.wait_for(scenario(AdvisoryServer(
+        idle_sleep_s=0.001, config=SERVICE_CFG, device="cpu",
+        faults=FaultPlan([Fault("drop_conn", at=2)]))), timeout=120))
+    from repro.core.faults import Fault as RefFault
+    want = asyncio.run(asyncio.wait_for(scenario(RefServer(
+        idle_sleep_s=0.001,
+        faults=RefFaultPlan([RefFault("drop_conn", at=2)]))), timeout=120))
+    assert got["ok"] and got["replay_complete"]
+    assert got["events"][-1]["event"] == "done"
+    assert _strip_wall(got["events"]) == _strip_wall(want["events"])
+
+
+# ------------------------------------------------- snapshot crash + torn
+def _warm_registry(designs, budget=30):
+    from repro_torch.core.service import DesignRegistry
+    reg = DesignRegistry(SERVICE_CFG, device="cpu")
+    runs = {}
+    for name in designs:
+        runs[name] = reg.register(name).run("grouped_sa", budget=budget,
+                                            seed=0)
+    return reg, runs
+
+
+def test_crash_mid_save_preserves_previous_snapshot(tmp_path):
+    from repro_torch.core.faults import InjectedFault
+    from repro_torch.core.service import (DesignRegistry, load_snapshot,
+                                          save_snapshot)
+    reg, runs = _warm_registry(["gemm"])
+    save_snapshot(reg, str(tmp_path))
+    for at in (0, 1):   # before member 0 / before the manifest replace
+        with pytest.raises(InjectedFault):
+            save_snapshot(reg, str(tmp_path),
+                          faults=FaultPlan([Fault("crash_save", at=at)]))
+    reg2 = load_snapshot(str(tmp_path),
+                         registry=DesignRegistry(SERVICE_CFG, device="cpu"),
+                         strict=True)
+    assert reg2.names() == ["gemm"]
+    dse = reg2["gemm"].run("grouped_sa", budget=30, seed=0)
+    assert dse.result.n_evals == 0
+    np.testing.assert_array_equal(dse.frontier_points,
+                                  runs["gemm"].frontier_points)
+
+
+def test_torn_write_quarantines_only_the_damaged_design(tmp_path):
+    from repro_torch.core.service import (DesignRegistry, SnapshotError,
+                                          load_snapshot, save_snapshot)
+    reg, runs = _warm_registry(["FeedForward", "gemm"])
+    victim = "FeedForward"
+    idx = reg.names().index(victim)
+    save_snapshot(reg, str(tmp_path), faults=FaultPlan(
+        [Fault("corrupt_snapshot", at=idx, target=victim, value=100)]))
+    with pytest.raises(SnapshotError, match="checksum"):
+        load_snapshot(str(tmp_path), registry=DesignRegistry(
+            SERVICE_CFG, device="cpu"), strict=True)
+    reg2 = load_snapshot(str(tmp_path), registry=DesignRegistry(
+        SERVICE_CFG, device="cpu"))
+    rep = reg2.restore_report
+    assert sorted(rep["quarantined"]) == [victim]
+    assert "checksum" in rep["quarantined"][victim]
+    assert rep["restored"] == ["gemm"]
+    dse = reg2["gemm"].run("grouped_sa", budget=30, seed=0)
+    assert dse.result.n_evals == 0
+    np.testing.assert_array_equal(dse.frontier_points,
+                                  runs["gemm"].frontier_points)
+
+
+# -------------------------------------------------------- without a card
+@pytest.fixture
+def no_cuda(monkeypatch):
+    import torch
+    monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
+
+
+def test_service_needs_the_card_unless_asked_for_the_cpu(no_cuda, tmp_path):
+    from repro_torch.core.service import (AdvisoryService, DesignRegistry,
+                                          load_snapshot, save_snapshot)
+    from repro_torch.launch import serve
+    with pytest.raises(RuntimeError, match="no CUDA device"):
+        AdvisoryService()
+    with pytest.raises(RuntimeError, match="no CUDA device"):
+        DesignRegistry().register("gemm")
+    with pytest.raises(RuntimeError, match="no CUDA device"):
+        AdvisoryService(config=EvalConfig(backend="numpy"), hetero=True)
+    with pytest.raises(RuntimeError, match="no CUDA device"):
+        serve.main(["--stdio"])
+    with pytest.raises(RuntimeError, match="no CUDA device"):
+        serve.main(["--stdio", "--backend", "numpy"])
+    reg = DesignRegistry(SERVICE_CFG, device="cpu")
+    reg.register("gemm")
+    save_snapshot(reg, str(tmp_path))
+    with pytest.raises(RuntimeError, match="no CUDA device"):
+        load_snapshot(str(tmp_path))
+    assert load_snapshot(str(tmp_path), device="cpu").names() == ["gemm"]
+    with AdvisoryService(hetero=True, device="cpu") as svc:
+        svc.open_session("gemm", budget=10)
+        svc.run_until_idle()
+        assert svc.batcher.router.hetero.device.type == "cpu"
