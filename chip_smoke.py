@@ -113,9 +113,36 @@ Phases, each printing JSON lines (any failure raises and exits nonzero):
    must not build.  Counters are set to 0 around each step; walls beside
    numpy's, launches by rows, ``hetero_stats``, and the cold and warm
    registry-ready seconds are printed;
+11. row sharding over a device mesh (``repro_torch.launch.mesh``), every
+   shard on the one card: ``BatchedEvaluator`` on gemm, FeedForward and
+   k15mmtree with ``EvalConfig(backend="mesh", shards=1)`` and on a mesh
+   of 4 shards over ``cuda:0`` (``MeshBackend``, inner ``cuda``), at 512
+   rows (half inside the routing box, half below it) and ragged 1 and 37
+   rows: latency, BRAM and status equal to the numpy backend's, rung
+   counts equal to the unsharded cuda evaluator's, and K1 and K2 launched
+   on every shard (each shard's launches counted by ``DISPATCH_COUNTS``
+   must add up to the kernels' own counters); ``grouped_sa`` (budget
+   300) on gemm through a one-shard mesh against numpy; a hetero campaign
+   over ``QUICK_DESIGNS`` on a 2x2 ``("design", "eval")`` mesh over
+   ``cuda:0`` against phase 6's numpy store, K2's per-design-table mode
+   launched on every shard.  Walls beside the unsharded ones: on one card
+   the shards run in turn, so no speed-up is expected;
+12. the LLM serving path (``repro_torch.models``, ``repro_torch.train
+   .steps``), TF32 off (the flags are printed): ``decode_demo`` on every
+   reduced arch at batch 4; each reduced arch on the card against the
+   same weights and inputs on the CPU at float32 (prefill logits and
+   three teacher-forced decode steps) to the CPU tests' tolerance; and
+   qwen2-1.5b at full width (28 layers, d_model 1536, vocab 151936,
+   ~1.54 B parameters, materialized on the card from a seeded
+   ``torch.Generator``): prefill 4 x 1024 prompt tokens, 32 greedy
+   decode steps, at float32 and bfloat16, every step's logits against one
+   full forward over prompt and generated tokens at the same positions,
+   and ``make_decode_step`` picking the same tokens; prefill seconds,
+   decode tokens/s and ``torch.cuda.max_memory_allocated`` are printed;
 
-then the ``{"kernels": [...]}`` line (with each kernel's launches in
-phases 4, 5, 6 and 10), the ``nvidia-smi`` line, and last
+Phases 11 and 12 run after phase 7, before 8.  Then the ``{"kernels":
+[...]}`` line (with each kernel's launches in phases 4, 5, 6, 10 and
+11), the ``nvidia-smi`` line, and last
 ``{"ok": true, "device": {...}}``.  Without a CUDA device, or outside a
 checkout of the repository, it exits nonzero and prints no result.
 """
@@ -123,6 +150,7 @@ checkout of the repository, it exits nonzero and prints no result.
 from __future__ import annotations
 
 import argparse
+import contextlib
 import functools
 import json
 import os
@@ -137,6 +165,7 @@ SRC = os.path.join(ROOT, "src")
 #: published peaks of one H100 SXM (data sheet; dense, no sparsity)
 HBM_BYTES_PER_S = 3.35e12
 F32_OPS_PER_S = 67e12
+BF16_OPS_PER_S = 989e12
 #: float32 operations per event per fixpoint iteration: the edge add, the
 #: max with delta, the scan combine (two adds and a max) and max(A, M)
 OPS_PER_EVENT_ITER = 6
@@ -183,6 +212,27 @@ KNOWN_ANSWER_N = (8, 24, 64)
 SERVICE_DESIGNS = ("gemm", "FeedForward", "k15mmtree", "flowgnn_pna")
 SERVICE_OPTIMIZERS = ("grouped_sa", "grouped_random")
 SERVICE_BUDGET = 300
+#: phase 11: the designs, the batches (512 random rows, then ragged 1
+#: and 37), the shards of the one-card mesh, and grouped_sa's budget
+MESH_DESIGNS = ("gemm", "FeedForward", "k15mmtree")
+MESH_BATCHES = (512, 1, 37)
+MESH_SHARDS = 4
+MESH_BUDGET = 300
+#: the one card every shard of phase 11's meshes runs on
+MESH_DEVICE = "cuda:0"
+#: phase 12: the card against the CPU on the reduced archs at float32,
+#: to the CPU tests' tolerance (tests/test_torch_models.py RTOL:
+#: rtol = tol, atol = tol * max|CPU|)
+LLM_F32_TOL = 1e-5
+#: phase 12 at full width: qwen2-1.5b, batch 4 x 1024 prompt tokens (two
+#: Q_CHUNK chunks), 32 decode steps; each step's logits against one full
+#: forward over prompt + generated tokens, to these tolerances (same rule)
+LLM_FULL_ARCH = "qwen2-1.5b"
+LLM_BATCH = 4
+LLM_PROMPT = 1024
+LLM_GEN = 32
+LLM_FULL_F32_TOL = 1e-4
+LLM_FULL_BF16_TOL = 5e-2
 #: phase 10: the serve CLI's scripted transcript
 SERVE_SCRIPT = (
     {"op": "hello", "proto": 2},
@@ -918,7 +968,8 @@ def campaign_phase(dev) -> dict:
     report("hetero", FAST_DESIGNS, store, ref_fast, wall, ref_fast_wall,
            counts, rounds=camp.round, hetero_stats=stats,
            e_pad=camp.hetero.e_pad)
-    out = {"counts": counts, "stats": stats, "totals": totals}
+    out = {"counts": counts, "stats": stats, "totals": totals,
+           "quick_numpy": (ref_quick, ref_quick_wall)}
 
     # per-design campaigns: inline, and pooled (spawn: CUDA is up)
     for mode, workers in (("inline", 0), ("pooled", 2)):
@@ -1272,6 +1323,397 @@ def service_phase(dev) -> dict:
     return out
 
 
+# ------------------------------------------------------- mesh (phase 11)
+def shard_counts(prefix: str, n: int) -> list:
+    """Each shard's launches of closure kind ``prefix`` (DISPATCH_COUNTS
+    counts one per shard and call; on the card each is one kernel)."""
+    from repro_torch.kernels.fifo_eval import ops
+    return [ops.DISPATCH_COUNTS.get(f"{prefix}@shard{i}", 0)
+            for i in range(n)]
+
+
+def check_shards(label: str, counts: dict, n: int, kinds) -> dict:
+    """Every shard launched each closure kind of ``kinds`` (``{kind:
+    kernel counter}``), and the kernel counters equal the shards' sum."""
+    by_shard = {}
+    for kind, kernel in kinds.items():
+        per = [counts["dispatch"].get(f"{kind}@shard{i}", 0)
+               for i in range(n)]
+        if min(per) == 0:
+            raise AssertionError(f"{label}: {kernel} never launched on "
+                                 f"some shard: {per}")
+        if sum(per) != counts[kernel]:
+            raise AssertionError(f"{label}: {kernel} launched "
+                                 f"{counts[kernel]} times, the shards "
+                                 f"{per}")
+        by_shard[kernel] = per
+    return by_shard
+
+
+def mesh_rows(g, seed: int):
+    """MESH_BATCHES[0] rows: half inside the routing box (K1's rung), half
+    below its floor (K2's backstop), shuffled so every shard gets both."""
+    import numpy as np
+    half = MESH_BATCHES[0] // 2
+    rows = np.concatenate([box_rows(g, half, seed),
+                           low_rows(g, half, seed + 1)])
+    return rows[np.random.default_rng(seed).permutation(len(rows))]
+
+
+def mesh_phase(dev, quick_numpy) -> dict:
+    """Phase 11: row sharding over a mesh of devices on the one card.
+    ``quick_numpy`` is phase 6's numpy campaign over QUICK_DESIGNS.
+    Returns the kernels' launches, by shard and by rows."""
+    import dataclasses
+    import numpy as np
+    from repro_torch.core import BatchedEvaluator, EvalConfig, FifoAdvisor
+    from repro_torch.core.campaign import Campaign
+    from repro_torch.designs import QUICK_DESIGNS, make_design
+    from repro_torch.launch.mesh import make_campaign_mesh, make_eval_mesh
+    cuda, numpy_cfg = EvalConfig(backend="cuda"), EvalConfig(backend="numpy")
+    kernels = ("fifo_eval", "fifo_eval_condensed", "fifo_eval_hetero")
+    totals = dict.fromkeys(kernels, 0)
+    by_shard = {}
+    by_rows = {"fifo_eval": {}, "fifo_eval_condensed": {}}
+    evaluators = {
+        "shards1": lambda g: BatchedEvaluator(
+            g, EvalConfig(backend="mesh", shards=1), device=dev),
+        f"cuda0x{MESH_SHARDS}": lambda g: BatchedEvaluator(
+            g, EvalConfig(backend="mesh"), mesh=make_eval_mesh(
+                MESH_SHARDS, devices=[MESH_DEVICE] * MESH_SHARDS))}
+    rung_keys = ("n_condensed", "n_cond_fail", "n_fallbacks")
+    for name in MESH_DESIGNS:
+        g = raw_graph(name)
+        rows = mesh_rows(g, seed=11)
+        want = {c: BatchedEvaluator(g, numpy_cfg).evaluate(rows[:c])
+                for c in MESH_BATCHES}
+        BatchedEvaluator(g, cuda, device=dev)     # condenses g once
+
+        def solo():
+            ev = BatchedEvaluator(g, cuda, device=dev)
+            return ev, [ev.evaluate(rows[:c]) for c in MESH_BATCHES]
+        (ev, res), solo_wall, _ = run_step(solo)
+        solo_rungs = {k: getattr(ev.stats, k) for k in rung_keys}
+        for setup, make in evaluators.items():
+            def sharded():
+                ev = make(g)
+                return ev, [ev.evaluate(rows[:c]) for c in MESH_BATCHES]
+            (ev, res), wall, counts = run_step(sharded)
+            n = ev._impl.n_shards
+            for c, got in zip(MESH_BATCHES, res):
+                for a, b in zip(got, want[c]):
+                    if not np.array_equal(a, b):
+                        raise AssertionError(f"mesh {setup} {name} {c} "
+                                             f"rows: differs from numpy")
+            rungs = {k: getattr(ev.stats, k) for k in rung_keys}
+            if rungs != solo_rungs:
+                raise AssertionError(f"mesh {setup} {name}: rung counts "
+                                     f"{rungs}, unsharded {solo_rungs}")
+            shards = check_shards(f"mesh {setup} {name}", counts, n,
+                                  {"batched": "fifo_eval",
+                                   "condensed": "fifo_eval_condensed"})
+            for k in kernels:
+                totals[k] += counts[k]
+            for k in by_rows:
+                for r, m in counts[k + "_rows"].items():
+                    by_rows[k][r] = by_rows[k].get(r, 0) + m
+            for k, per in shards.items():
+                by_shard.setdefault(setup, {}).setdefault(k, [0] * n)
+                by_shard[setup][k] = [a + b for a, b in
+                                      zip(by_shard[setup][k], per)]
+            emit({"phase": "mesh", "design": name, "setup": setup,
+                  "shards": n, "batches": list(MESH_BATCHES),
+                  "wall_s": wall, "unsharded_wall_s": solo_wall,
+                  "equal_to_numpy": True, "rungs": rungs,
+                  "rungs_equal_to_unsharded": True,
+                  "launches_by_shard": shards,
+                  "launches_by_rows": {k: counts[k + "_rows"]
+                                       for k in by_rows}})
+
+    # the advisor on a one-shard mesh against numpy
+    def advisor():
+        return FifoAdvisor(make_design("gemm"), EvalConfig(
+            backend="mesh", shards=1), device=dev).run(
+            "grouped_sa", budget=MESH_BUDGET, seed=0)
+    res, wall, counts = run_step(advisor)
+    ref, ref_wall = wall_of(lambda: FifoAdvisor(
+        make_design("gemm"), numpy_cfg).run("grouped_sa",
+                                            budget=MESH_BUDGET, seed=0))
+    same_search("mesh gemm grouped_sa", res, ref)
+    for k in kernels:
+        totals[k] += counts[k]
+    emit({"phase": "mesh", "design": "gemm", "setup": "shards1",
+          "optimizer": "grouped_sa", "budget": MESH_BUDGET,
+          "wall_s": wall, "numpy_wall_s": ref_wall, "equal_to_numpy": True,
+          "launches": {k: counts[k] for k in kernels}})
+
+    # a hetero campaign on a 2x2 ("design", "eval") mesh over cuda:0
+    ref_store, ref_wall = quick_numpy
+    _, solo_wall, _ = run_step(lambda: Campaign(campaign_spec(
+        QUICK_DESIGNS, eval=cuda, hetero=True, workers=0),
+        device=dev).run())
+
+    def campaign():
+        mesh = make_campaign_mesh(2, 2, devices=[MESH_DEVICE] * 4)
+        camp = Campaign(campaign_spec(QUICK_DESIGNS, eval=cuda, hetero=True,
+                                      workers=0), device=dev, mesh=mesh)
+        return camp, camp.run()
+    (camp, store), wall, counts = run_step(campaign)
+    same_store("mesh hetero campaign", store, ref_store)
+    shards = check_shards("mesh hetero campaign", counts, 4,
+                          {"hetero": "fifo_eval_hetero"})
+    for k in kernels:
+        totals[k] += counts[k]
+    by_shard["campaign_2x2"] = shards
+    emit({"phase": "mesh", "mode": "hetero_campaign", "mesh": [2, 2],
+          "designs": list(QUICK_DESIGNS), "wall_s": wall,
+          "unsharded_wall_s": solo_wall, "numpy_wall_s": ref_wall,
+          "equal_to_numpy": True, "launches_by_shard": shards,
+          "fifo_eval_hetero_launches_by_rows":
+              counts["fifo_eval_hetero_rows"],
+          "hetero_stats": dataclasses.asdict(camp.hetero.stats),
+          "note": "every shard runs on the one card, in turn: no speed-up "
+                  "is expected"})
+    return {"totals": totals, "by_shard": by_shard, "by_rows": by_rows}
+
+
+def synced(dev, out):
+    """``out`` once the card has finished the work queued for it."""
+    import torch
+    torch.cuda.synchronize(dev)
+    return out
+
+
+# ------------------------------------------------- LLM serving (phase 12)
+def llm_inputs(cfg, b: int, s: int, n_decode: int, seed: int):
+    """(prompt tokens (b, s - F), frontend embeds or None, decode tokens
+    (b, n_decode)) from a seeded numpy generator."""
+    import numpy as np
+    rng = np.random.default_rng(seed)
+    F = cfg.frontend_tokens
+    toks = rng.integers(0, cfg.vocab, (b, s - F)).astype(np.int64)
+    embeds = (rng.standard_normal((b, F, cfg.d_model)).astype(np.float32)
+              if F else None)
+    dec = rng.integers(0, cfg.vocab, (b, n_decode)).astype(np.int64)
+    return toks, embeds, dec
+
+
+def llm_logits(cfg, params, toks, embeds, dec, dev, cdt) -> list:
+    """The prefill step's last logits, then each teacher-forced decode
+    step's logits, on ``dev`` (float32 numpy)."""
+    import torch
+    from repro_torch.models.transformer import forward
+    from repro_torch.train.steps import make_prefill_step
+    s = toks.shape[1] + cfg.frontend_tokens
+    e = None if embeds is None else torch.as_tensor(embeds, device=dev)
+    last, cache = make_prefill_step(cfg, s + dec.shape[1], cdt=cdt)(
+        params, torch.as_tensor(toks, device=dev), e)
+    out = [last.float().cpu().numpy()]
+    with torch.no_grad():
+        for j in range(dec.shape[1]):
+            logits, cache = forward(
+                cfg, params, torch.as_tensor(dec[:, j:j + 1], device=dev),
+                cache=cache, cache_index=s + j, cdt=cdt)
+            out.append(logits[:, -1].float().cpu().numpy())
+    return out
+
+
+def rel_err(got, want) -> float:
+    """max |got - want| over max |want|."""
+    import numpy as np
+    got = np.asarray(got, np.float64)
+    want = np.asarray(want, np.float64)
+    return float(np.abs(got - want).max() / np.abs(want).max())
+
+
+def within(got, want, tol: float) -> bool:
+    """``np.allclose`` at ``rtol=tol, atol=tol * max|want|`` (the CPU
+    tests' rule)."""
+    import numpy as np
+    want = np.asarray(want, np.float64)
+    return bool(np.allclose(np.asarray(got, np.float64), want, rtol=tol,
+                            atol=tol * float(np.abs(want).max())))
+
+
+def llm_bounds(cfg, n_params: int, cdt) -> dict:
+    """The least time the card could take for phase 12's full-width
+    prefill and for one decode step: the larger of the bytes over the HBM
+    rate and the products over the peak rate of their type (the
+    projections in ``cdt``, the unembedding in float32; causal attention
+    counted over whole (Q, S) tiles, as the port computes it).  Bytes:
+    the float32 weights read once (in bf16 also the cast copy written
+    and read), the cache read and the logits written."""
+    import torch
+    vpad = -(-cfg.vocab // 16) * 16
+    d, L, hd = cfg.d_model, cfg.n_layers, cfg.head_dim_
+    bf16 = cdt == torch.bfloat16
+    peak = BF16_OPS_PER_S if bf16 else F32_OPS_PER_S
+    esize = 2 if bf16 else 4
+    weights = 4 * n_params + (4 * n_params if bf16 else 0)
+    unembed = 2 * d * vpad                       # float32 flops per token
+    proj = 2 * n_params - unembed                # cdt flops per token
+
+    def bound(tokens, ctx, cache_bytes):
+        attn = 4 * L * cfg.n_heads * hd * tokens * ctx
+        ops_s = (proj * tokens + attn) / peak + unembed * tokens \
+            / F32_OPS_PER_S
+        bytes_s = (weights + cache_bytes + 4 * tokens * vpad) \
+            / HBM_BYTES_PER_S
+        return max(ops_s, bytes_s), ("operations" if ops_s >= bytes_s
+                                     else "bytes")
+    tokens = LLM_BATCH * LLM_PROMPT
+    pre, pre_by = bound(tokens, LLM_PROMPT, 0)
+    cache = 2 * L * LLM_BATCH * (LLM_PROMPT + LLM_GEN) * \
+        cfg.n_kv_heads * hd * esize
+    step, step_by = bound(LLM_BATCH, LLM_PROMPT + LLM_GEN, cache)
+    return {"prefill_bound_s": pre, "prefill_bound_by": pre_by,
+            "decode_step_bound_s": step, "decode_bound_by": step_by,
+            "decode_bound_tok_per_s": LLM_BATCH / step}
+
+
+def llm_phase(dev) -> dict:
+    """Phase 12: the LLM serving path on the card (see the docstring)."""
+    import numpy as np
+    import torch
+    from repro_torch.configs import ARCHS, get_arch
+    from repro_torch.launch import decode_demo
+    from repro_torch.models import params as pm
+    from repro_torch.models.transformer import forward, model_specs
+    from repro_torch.train.steps import make_decode_step, make_prefill_step
+    flags = decode_demo.no_tf32()
+    emit({"phase": "llm", "step": "tf32_off", **flags})
+    cpu = torch.device("cpu")
+    out = {}
+    # (a) the demo on every reduced arch, batch 4
+    for arch in sorted(ARCHS):
+        with contextlib.redirect_stdout(sys.stderr):    # its own prints
+            r, wall = wall_of(lambda: decode_demo.main(
+                ["--arch", arch, "--batch", "4", "--device", str(dev)]))
+        vpad = -(-get_arch(arch).reduced().vocab // 16) * 16
+        if set(r) != {"prefill_s", "decode_s", "tok_per_s", "tokens"} \
+                or r["tokens"].shape != (4, 16) \
+                or not ((r["tokens"] >= 0) & (r["tokens"] < vpad)).all():
+            raise AssertionError(f"decode_demo {arch}: {r}")
+        emit({"phase": "llm", "step": "decode_demo", "arch": arch,
+              "wall_s": wall, "prefill_s": r["prefill_s"],
+              "decode_s": r["decode_s"], "tok_per_s": r["tok_per_s"],
+              "tokens0": r["tokens"][0].tolist()})
+    # (b) each reduced arch: the card against the CPU, same weights and
+    # inputs, float32
+    worst = 0.0
+    for arch in sorted(ARCHS):
+        cfg = get_arch(arch).reduced()
+        host = pm.materialize(model_specs(cfg),
+                              torch.Generator().manual_seed(0))
+        card = pm.tree_map(lambda t: t.to(dev), host)
+        inputs = llm_inputs(cfg, 2, 16, 3, seed=7)
+        want = llm_logits(cfg, host, *inputs, cpu, torch.float32)
+        got = llm_logits(cfg, card, *inputs, dev, torch.float32)
+        errs = [rel_err(g, w) for g, w in zip(got, want)]
+        if not all(within(g, w, LLM_F32_TOL) for g, w in zip(got, want)):
+            raise AssertionError(f"{arch}: card and CPU logits differ "
+                                 f"beyond {LLM_F32_TOL}: {errs}")
+        worst = max(worst, max(errs))
+        emit({"phase": "llm", "step": "card_vs_cpu", "arch": arch,
+              "tol": LLM_F32_TOL, "max_err_over_max": max(errs),
+              "equal_within_tol": True})
+    out["card_vs_cpu_max_err"] = worst
+    # (c) qwen2-1.5b at full width
+    cfg = get_arch(LLM_FULL_ARCH)
+    torch.cuda.reset_peak_memory_stats(dev)
+    params, init_s = wall_of(lambda: pm.materialize(
+        model_specs(cfg), torch.Generator(device=dev).manual_seed(0)))
+    torch.cuda.synchronize(dev)
+    n_params = sum(t.numel() for t in pm.tree_leaves(params))
+    toks, _, _ = llm_inputs(cfg, LLM_BATCH, LLM_PROMPT, 0, seed=1)
+    prompt = torch.as_tensor(toks, device=dev)
+    failed = []
+    for cdt, tol in ((torch.float32, LLM_FULL_F32_TOL),
+                     (torch.bfloat16, LLM_FULL_BF16_TOL)):
+        torch.cuda.reset_peak_memory_stats(dev)
+        prefill = make_prefill_step(cfg, LLM_PROMPT + LLM_GEN, cdt=cdt)
+        decode = make_decode_step(cfg, cdt=cdt)
+
+        (last, cache), prefill_s = wall_of(
+            lambda: synced(dev, prefill(params, prompt)))
+        tok = torch.argmax(last, -1).to(torch.int32)[:, None]
+        gen = [tok]
+        step_logits = []
+        t0 = time.perf_counter()
+        with torch.no_grad():
+            for i in range(LLM_GEN):
+                logits, cache = forward(cfg, params, tok, cache=cache,
+                                        cache_index=LLM_PROMPT + i,
+                                        cdt=cdt)
+                step_logits.append(logits[:, -1].float())
+                tok = torch.argmax(logits[:, -1], -1).to(
+                    torch.int32)[:, None]
+                gen.append(tok)
+        torch.cuda.synchronize(dev)
+        decode_s = time.perf_counter() - t0
+        # the decode step as a user calls it, from the same cache state
+        _, cache2 = prefill(params, prompt)
+        t1 = time.perf_counter()
+        tok2 = gen[0]
+        for i in range(LLM_GEN):
+            nxt, cache2 = decode(params, cache2, tok2, LLM_PROMPT + i)
+            tok2 = nxt[:, None]
+            if not torch.equal(tok2, gen[i + 1]):
+                raise AssertionError(f"{LLM_FULL_ARCH} {cdt}: decode step "
+                                     f"{i} picked other tokens than the "
+                                     f"forward it wraps")
+        torch.cuda.synchronize(dev)
+        decode_step_s = time.perf_counter() - t1
+        peak = torch.cuda.max_memory_allocated(dev)
+        del cache, cache2
+        # one full forward over prompt + generated tokens; causal, so
+        # padding it to a whole number of Q_CHUNK chunks changes nothing
+        # at the positions compared
+        seq = torch.cat([prompt.to(torch.int32)] + gen[:-1], dim=1)
+        from repro_torch.models.attention import Q_CHUNK
+        pad = -seq.shape[1] % Q_CHUNK
+        seq = torch.cat([seq, torch.zeros((LLM_BATCH, pad),
+                                          dtype=seq.dtype, device=dev)], 1)
+        with torch.no_grad():
+            full, _ = forward(cfg, params, seq, return_cache=False,
+                              cdt=cdt)
+            want = full[:, LLM_PROMPT:LLM_PROMPT + LLM_GEN].float()
+            want_last = full[:, LLM_PROMPT - 1].float()
+            got = torch.stack(step_logits, dim=1)
+            want, want_last, got = (want.cpu().numpy(),
+                                    want_last.cpu().numpy(),
+                                    got.cpu().numpy())
+        del full
+        errs = {"decode": rel_err(got, want),
+                "prefill_last": rel_err(last.float().cpu().numpy(),
+                                        want_last)}
+        argmax_agree = float((got.argmax(-1) == want.argmax(-1)).mean())
+        ok = within(got, want, tol) and within(
+            last.float().cpu().numpy(), want_last, tol)
+        row = {"phase": "llm", "step": "full_width", "arch": LLM_FULL_ARCH,
+               "cdt": str(cdt).replace("torch.", ""), "n_params": n_params,
+               "layers": cfg.n_layers, "d_model": cfg.d_model,
+               "vocab": cfg.vocab, "batch": LLM_BATCH,
+               "prompt": LLM_PROMPT, "generated": LLM_GEN,
+               "materialize_s": init_s, "prefill_s": prefill_s,
+               "decode_s": decode_s,
+               "decode_tok_per_s": LLM_BATCH * LLM_GEN / decode_s,
+               "decode_step_s": decode_step_s,
+               "decode_step_tok_per_s": LLM_BATCH * LLM_GEN / decode_step_s,
+               "max_memory_allocated": peak,
+               **llm_bounds(cfg, n_params, cdt), "tol": tol,
+               "max_err_over_max": errs, "argmax_agree": argmax_agree,
+               "decode_vs_forward_within_tol": ok}
+        emit(row)
+        if not ok:
+            failed.append(f"{LLM_FULL_ARCH} {cdt}: decode logits differ "
+                          f"from the full forward beyond {tol}: {errs}")
+        out[row["cdt"]] = row
+    if failed:
+        raise AssertionError("; ".join(failed))
+    return out
+
+
 # ------------------------------------------------------------------ timing
 def cuda_ms(fn, reps: int) -> float:
     import torch
@@ -1609,6 +2051,19 @@ def run() -> int:
     fuzz_phase()
     emit({"phase": "fuzz_done", "seconds": round(time.perf_counter() - t0,
                                                  3)})
+    # phases 11 and 12 run here, before the timings, the profiler and the
+    # service: run after them, the host-bound full-width decode loop took
+    # twice as long
+    t0 = time.perf_counter()
+    mesh = mesh_phase(dev, campaign["quick_numpy"])
+    emit({"phase": "mesh_done",
+          "seconds": round(time.perf_counter() - t0, 3)})
+    t0 = time.perf_counter()
+    llm = llm_phase(dev)
+    torch.cuda.empty_cache()
+    emit({"phase": "llm_done", "seconds": round(time.perf_counter() - t0, 3),
+          "full_width": {k: llm[k]["decode_tok_per_s"]
+                         for k in ("float32", "bfloat16")}})
 
     t0 = time.perf_counter()
     times = timings(dev)
@@ -1676,6 +2131,16 @@ def run() -> int:
             extra["service_hetero_launches_by_rows"] = \
                 service["hetero"]["counts"]["fifo_eval_hetero_rows"]
             extra["service_hetero_stats"] = service["hetero"]["stats"]
+        # phase 11: the launches on the meshes, by shard and by rows
+        extra["mesh_launches"] = mesh["totals"][name]
+        extra["mesh_launches_by_shard"] = {
+            setup: per[name] for setup, per in mesh["by_shard"].items()
+            if name in per}
+        extra["mesh_launches_by_rows"] = mesh["by_rows"][name]
+        if name == "fifo_eval":
+            extra["mesh_hetero_launches"] = mesh["totals"]["fifo_eval_hetero"]
+            extra["mesh_hetero_launches_by_shard"] = \
+                mesh["by_shard"]["campaign_2x2"]["fifo_eval_hetero"]
         kernels.append({
             "name": name, "route": "cuda", "source": source,
             "replaces": replaces, "launches": launches[name],

@@ -2,15 +2,18 @@
 
 One shared operand layer (:mod:`.operands`, torch), the
 :class:`.EvalBackend` protocol with a registry, three exact
-implementations (numpy worklist, plain torch fixpoint, the CUDA kernels),
-the :class:`.DispatchPolicy` (bucketing + UNRESOLVED-row escalation), the
+implementations (numpy worklist, plain torch fixpoint, the CUDA kernels)
+and their row sharding over devices (:class:`.MeshBackend`), the
+:class:`.DispatchPolicy` (bucketing + UNRESOLVED-row escalation), the
 :class:`.RungCascade`, the cross-design :class:`.HeteroDispatcher`, the
 vectorized :class:`.ConfigCache`, and the incremental re-simulation fast
 path (:func:`.solve_delta`).
 
-The torch-backed modules (operands, fixpoint, pallas) load on first use,
-so the numpy worklist path imports without torch.
+The torch-backed modules (operands, fixpoint, pallas, mesh) load on first
+use, so the numpy worklist path imports without torch.
 """
+
+import importlib
 
 from repro_torch.core.backends.base import (BACKENDS, BIG, CONVERGED,
                                             DEADLOCK, F32_EXACT_LIMIT,
@@ -28,7 +31,22 @@ from repro_torch.core.backends.worklist import (IncrementalStats,
                                                 evaluate_np, solve,
                                                 solve_delta)
 
+#: names resolved on attribute access from torch-importing submodules
+_LAZY_ATTRS = {
+    "MeshBackend": "repro_torch.core.backends.mesh",
+}
+
+
+def __getattr__(name):
+    module = _LAZY_ATTRS.get(name)
+    if module is None:
+        raise AttributeError(
+            f"module {__name__!r} has no attribute {name!r}")
+    return getattr(importlib.import_module(module), name)
+
+
 __all__ = [
+    "MeshBackend",
     "BACKENDS", "BIG", "BUCKETS", "CONVERGED", "CacheStats", "ConfigCache",
     "DEADLOCK", "DispatchPolicy", "EvalBackend", "F32_EXACT_LIMIT",
     "HeteroDispatcher", "HeteroStats", "IncrementalStats", "RungCascade",

@@ -107,13 +107,8 @@ _LAZY_BACKEND_MODULES = {
     "jax": "repro_torch.core.backends.fixpoint",
     "cuda": "repro_torch.core.backends.pallas",
     "pallas": "repro_torch.core.backends.pallas",
-}
-
-#: reference backends that this package does not implement yet, with the
-#: ROADMAP item that ports them
-_NOT_PORTED = {
-    "mesh": "P11 (multi-device row sharding)",
-    "sharded": "P11 (multi-device row sharding)",
+    "mesh": "repro_torch.core.backends.mesh",
+    "sharded": "repro_torch.core.backends.mesh",
 }
 
 
@@ -121,19 +116,14 @@ def available_backends() -> Tuple[str, ...]:
     """Canonical backend names of this package (the torch backends run
     on the device the caller gives them)."""
     names = {cls.name for cls in BACKENDS.values()}
-    names.update({"worklist", "fixpoint", "cuda"})
+    names.update({"worklist", "fixpoint", "cuda", "mesh"})
     return tuple(sorted(names))
 
 
 def get_backend(name: str) -> Type[EvalBackend]:
     """Resolve a registry name (or alias) to its backend class,
-    importing lazy modules on first request; raises
-    ``NotImplementedError`` for reference backends not ported yet and
-    ``ValueError`` with the available names on any other miss."""
-    if name in _NOT_PORTED:
-        raise NotImplementedError(
-            f"backend {name!r} is not ported yet: ROADMAP "
-            f"{_NOT_PORTED[name]}")
+    importing lazy modules on first request; raises ``ValueError`` with
+    the available names on a miss."""
     if name not in BACKENDS and name in _LAZY_BACKEND_MODULES:
         import importlib
         importlib.import_module(_LAZY_BACKEND_MODULES[name])

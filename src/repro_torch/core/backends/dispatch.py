@@ -43,21 +43,31 @@ BUCKETS = (1, 8, 32, 128, 512, 2048)
 
 
 class DispatchPolicy:
-    """Routes depth batches through a backend and resolves every row."""
+    """Routes depth batches through a backend and resolves every row.
+
+    ``shard_multiple`` (the backend's mesh size; 1 = unsharded) rounds
+    every padded batch up to a shard multiple, so the sharded evaluators
+    split rows evenly across devices.
+    """
 
     def __init__(self, worklist: WorklistBackend,
-                 buckets: Tuple[int, ...] = BUCKETS):
+                 buckets: Tuple[int, ...] = BUCKETS,
+                 shard_multiple: int = 1):
         self.worklist = worklist
         self.buckets = tuple(buckets)
+        self.shard_multiple = max(1, int(shard_multiple))
 
     def bucket_size(self, c: int) -> Optional[int]:
         return next((b for b in self.buckets if b >= c), None)
 
     def pad_batch(self, m: np.ndarray) -> np.ndarray:
-        """Pad C up to the covering bucket by repeating the last row."""
+        """Pad C up to the covering bucket (rounded to a shard multiple)
+        by repeating the last row."""
         c = m.shape[0]
         bucket = self.bucket_size(c)
         target = c if bucket is None else bucket
+        k = self.shard_multiple
+        target = -(-target // k) * k
         if target == c:
             return m
         pad = np.repeat(m[-1:], target - c, axis=0)
@@ -198,7 +208,14 @@ class HeteroDispatcher:
     of :attr:`BUCKETS` (the reference's sizes), through one launch.
     UNRESOLVED rows are escalated to the owning design's worklist
     arbiter, exactly like :class:`DispatchPolicy`.  ``device=None``
-    means ``cuda``; ``mesh``/``shards`` (row sharding) are ROADMAP P11.
+    means ``cuda``.
+
+    ``mesh`` (or ``shards``, a 1-D eval mesh over that many devices of
+    ``device``'s kind) partitions the packed batch over the mesh's
+    devices: rows are stacked design-major, so a 2-D ``("design",
+    "eval")`` mesh puts contiguous design blocks on contiguous device
+    groups.  Batches are padded to a shard multiple, and every shard
+    launches its own kernel; the tables are copied once to each device.
     """
 
     #: finer-grained than BUCKETS: cross-design batches vary more in size
@@ -209,16 +226,19 @@ class HeteroDispatcher:
                  max_iters: int = 64,
                  buckets: Sequence[int] = BUCKETS,
                  mesh=None, shards: Optional[int] = None, device=None):
-        if mesh is not None or shards is not None:
-            raise NotImplementedError(
-                "hetero row sharding over devices is not ported yet: "
-                "ROADMAP P11 (multi-device row sharding)")
         from repro_torch.core.backends.base import resolve_device
         from repro_torch.core.backends.operands import get_operands
         from repro_torch.kernels.fifo_eval.ops import \
             make_hetero_batched_eval
         self.max_iters = int(max_iters)
-        self.device = resolve_device(device)
+        if mesh is None and shards is not None:
+            from repro_torch.launch.mesh import make_eval_mesh
+            mesh = make_eval_mesh(shards, device=device)
+        self.mesh = mesh
+        self.shard_multiple = mesh.size if mesh is not None else 1
+        self.device = resolve_device(
+            mesh.devices[0] if device is None and mesh is not None
+            else device)
         self.e_pad = 0
         self.f_max = 0
         self.r_max = 0
@@ -227,7 +247,8 @@ class HeteroDispatcher:
         self._slot: Dict[str, int] = {}      # design -> table row
         self._tables = None                  # HeteroTables on the device
         self.worklists: Dict[str, WorklistBackend] = {}
-        self._call = make_hetero_batched_eval(max_iters, device=self.device)
+        self._call = make_hetero_batched_eval(max_iters, device=self.device,
+                                              mesh=mesh)
         self.buckets = tuple(buckets)
         self.stats = HeteroStats()
         worklists = worklists or {}
@@ -284,11 +305,13 @@ class HeteroDispatcher:
 
     def _pad_rows(self, table_of_row: np.ndarray, depths: np.ndarray
                   ) -> Tuple[np.ndarray, np.ndarray]:
-        """Pad the batch up to the covering bucket by repeating the last
-        row."""
+        """Pad the batch up to the covering bucket (rounded to a shard
+        multiple) by repeating the last row."""
         c = depths.shape[0]
         bucket = next((b for b in self.buckets if b >= c), None)
         target = c if bucket is None else bucket
+        k = self.shard_multiple
+        target = -(-target // k) * k
         if target == c:
             return table_of_row, depths
         pad = target - c

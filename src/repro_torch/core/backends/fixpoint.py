@@ -50,10 +50,27 @@ class _ScanBackend(EvalBackend):
 
     use_ref = True
     wants_bucketing = True
+    #: a :class:`repro_torch.launch.mesh.Mesh` to shard the rows over
+    #: (None = one device); set by the MeshBackend subclass
+    mesh = None
 
     def __init__(self, max_iters: int = 64, device=None):
         super().__init__(max_iters=max_iters,
                          device=resolve_device(device))
+
+    @property
+    def shard_multiple(self) -> int:
+        """Row counts must be a multiple of this (the mesh size)."""
+        return self.mesh.size if self.mesh is not None else 1
+
+    def _pad_shards(self, m: np.ndarray) -> Tuple[np.ndarray, int]:
+        """Pad rows (repeating the last) to a shard multiple; returns the
+        padded matrix and the real row count to slice results back to."""
+        c = m.shape[0]
+        k = self.shard_multiple
+        if k > 1 and c % k:
+            m = np.concatenate([m, np.repeat(m[-1:], k - c % k, axis=0)])
+        return m, c
 
     def prepare(self, g: SimGraph):
         from repro_torch.kernels.fifo_eval.ops import (make_batched_eval,
@@ -62,7 +79,7 @@ class _ScanBackend(EvalBackend):
         self.ops = get_operands(g, self.device)
         self._call = make_batched_eval(
             g, use_ref=self.use_ref, max_iters=self.max_iters,
-            device=self.device)
+            device=self.device, mesh=self.mesh)
         self._call_times = None
         # the kernel backend prepared on a CondensedGraph fuses the
         # exactness certificate into the evaluation launch (the rung
@@ -77,7 +94,8 @@ class _ScanBackend(EvalBackend):
             if (isinstance(g, CondensedGraph)
                     and g.compression >= FUSED_MIN_COMPRESSION):
                 self._fused = make_condensed_eval(
-                    g, max_iters=self.max_iters, device=self.device)
+                    g, max_iters=self.max_iters, device=self.device,
+                    mesh=self.mesh)
         return self.ops
 
     @property
@@ -92,20 +110,22 @@ class _ScanBackend(EvalBackend):
         cross constraint (``verify_rows`` semantics — cert is True only on
         CONVERGED rows whose expansion is provably the raw least
         fixpoint).  Only valid when :attr:`fused_certificate`."""
-        m = np.atleast_2d(np.asarray(depth_matrix, dtype=np.int32))
+        m, c = self._pad_shards(
+            np.atleast_2d(np.asarray(depth_matrix, dtype=np.int32)))
         lat, bram, status, cert = self._fused(m)
-        return (np.asarray(np.rint(lat), dtype=np.int64),
-                np.asarray(bram, dtype=np.int64),
-                np.asarray(status, dtype=np.int8),
-                np.asarray(cert, dtype=bool))
+        return (np.asarray(np.rint(lat[:c]), dtype=np.int64),
+                np.asarray(bram[:c], dtype=np.int64),
+                np.asarray(status[:c], dtype=np.int8),
+                np.asarray(cert[:c], dtype=bool))
 
     def evaluate(self, depth_matrix: np.ndarray
                  ) -> Tuple[np.ndarray, np.ndarray, np.ndarray]:
-        m = np.atleast_2d(np.asarray(depth_matrix, dtype=np.int32))
+        m, c = self._pad_shards(
+            np.atleast_2d(np.asarray(depth_matrix, dtype=np.int32)))
         lat, bram, status = self._call(m)
-        return (np.asarray(np.rint(lat), dtype=np.int64),
-                np.asarray(bram, dtype=np.int64),
-                np.asarray(status, dtype=np.int8))
+        return (np.asarray(np.rint(lat[:c]), dtype=np.int64),
+                np.asarray(bram[:c], dtype=np.int64),
+                np.asarray(status[:c], dtype=np.int8))
 
     def evaluate_with_times(self, depth_matrix: np.ndarray
                             ) -> Tuple[np.ndarray, np.ndarray, np.ndarray,
@@ -116,13 +136,14 @@ class _ScanBackend(EvalBackend):
             from repro_torch.kernels.fifo_eval.ops import make_batched_eval
             self._call_times = make_batched_eval(
                 self.g, use_ref=self.use_ref, max_iters=self.max_iters,
-                with_times=True, device=self.device)
-        m = np.atleast_2d(np.asarray(depth_matrix, dtype=np.int32))
+                with_times=True, device=self.device, mesh=self.mesh)
+        m, c = self._pad_shards(
+            np.atleast_2d(np.asarray(depth_matrix, dtype=np.int32)))
         lat, bram, status, times = self._call_times(m)
-        return (np.asarray(np.rint(lat), dtype=np.int64),
-                np.asarray(bram, dtype=np.int64),
-                np.asarray(status, dtype=np.int8),
-                np.asarray(np.rint(times), dtype=np.int64))
+        return (np.asarray(np.rint(lat[:c]), dtype=np.int64),
+                np.asarray(bram[:c], dtype=np.int64),
+                np.asarray(status[:c], dtype=np.int8),
+                np.asarray(np.rint(times[:c]), dtype=np.int64))
 
 
 @register_backend

@@ -89,8 +89,9 @@ class CampaignSpec:
     #: Hetero dispatch runs in the scheduler process, so ``workers`` is
     #: ignored in this mode (no pool is spawned)
     hetero: bool = False
-    #: deprecated spelling of ``eval.shards`` (row sharding is ROADMAP
-    #: P11: anything but None raises).  None = unsharded.
+    #: deprecated spelling of ``eval.shards``.  Hetero campaigns shard
+    #: the packed cross-design batch (design-parallel); per-design
+    #: campaigns force ``backend="mesh"``.  None = unsharded.
     shards: Optional[int] = None
     #: rounds between automatic checkpoints (when a path is configured)
     checkpoint_every: int = 8
@@ -142,8 +143,13 @@ class DesignContext:
 
     def __init__(self, name: str, spec: CampaignSpec, device=None):
         self.name = name
-        self.advisor = FifoAdvisor(make_design(name), spec.eval,
-                                   device=device)
+        # hetero campaigns shard the packed cross-design dispatch instead
+        # of each per-design evaluator (which only serves incremental and
+        # escalation rows there)
+        cfg = spec.eval
+        if spec.hetero and cfg.shards is not None:
+            cfg = cfg.replace(shards=None)
+        self.advisor = FifoAdvisor(make_design(name), cfg, device=device)
 
     @property
     def graph(self):
@@ -199,13 +205,20 @@ class Campaign:
     worker-pool/hetero lifecycle; the per-round evaluation routing itself
     lives in the shared :class:`~repro_torch.core.campaign.router
     .RoundRouter`.  ``device`` is the torch device of the advisors and of
-    the hetero dispatch (None = CUDA); it is a runtime choice, not part of
-    the checkpointed spec.
+    the hetero dispatch (None = CUDA), and ``mesh`` an explicit
+    :class:`repro_torch.launch.mesh.Mesh` for the hetero dispatch (in
+    place of ``spec.shards``; hetero campaigns only).  Both are runtime
+    choices, not part of the checkpointed spec.
     """
 
     def __init__(self, spec: CampaignSpec,
                  tasks: Optional[Sequence[TaskSpec]] = None,
-                 checkpoint_path: Optional[str] = None, device=None):
+                 checkpoint_path: Optional[str] = None, device=None,
+                 mesh=None):
+        if mesh is not None and not spec.hetero:
+            raise ValueError("Campaign(mesh=...) shards the hetero "
+                             "dispatch only; per-design campaigns shard "
+                             "through spec.eval.shards")
         self.spec = spec
         self.device = device
         self.checkpoint_path = checkpoint_path
@@ -256,7 +269,8 @@ class Campaign:
                          for k, d in self.designs.items()}
             hetero = HeteroDispatcher(graphs, worklists,
                                       max_iters=spec.max_iters,
-                                      shards=spec.shards, device=device)
+                                      mesh=mesh, shards=spec.shards,
+                                      device=device)
         self.router = RoundRouter(self.designs, pool=self.pool,
                                   hetero=hetero)
 

@@ -10,7 +10,10 @@ the reference package), so both packages can be fed the very same graph:
     cg = condensed_from_arrays(graph_fields(other_condensed, CondensedGraph),
                                raw=g)
 
-``EvalConfig.from_dict`` carries a config dict across the same way.
+``EvalConfig.from_dict`` carries a config dict across the same way, and
+:func:`lm_params_from_arrays` the parameters of the LLM substrate
+(``repro_torch.models``), whose random initialisation differs from the
+reference's ``jax.random`` streams.
 """
 
 from __future__ import annotations
@@ -23,7 +26,8 @@ import numpy as np
 from repro_torch.core.condense import CondensedGraph
 from repro_torch.core.simgraph import SimGraph
 
-__all__ = ["condensed_from_arrays", "graph_fields", "simgraph_from_arrays"]
+__all__ = ["condensed_from_arrays", "graph_fields", "lm_params_from_arrays",
+           "simgraph_from_arrays"]
 
 #: fields that are not arrays (copied as they are)
 _SCALARS = {"unbounded_latency": int, "_bound": int, "tag": str}
@@ -80,3 +84,35 @@ def condensed_from_arrays(fields: dict,
             raise ValueError("condensed_from_arrays needs the raw graph")
         raw = simgraph_from_arrays(raw_fields)
     return _build(CondensedGraph, fields, raw=raw)
+
+
+def lm_params_from_arrays(cfg, tree, device, dtype=None) -> dict:
+    """This package's LLM parameters from the reference's parameter tree
+    given as numpy arrays (nested dicts, with ``layers`` and
+    ``dense_layers`` stacked ``(L, ...)``): every key and shape is checked
+    against :func:`repro_torch.models.transformer.model_specs` and any
+    mismatch raises ``ValueError``.  Tensors go to ``device`` in ``dtype``
+    (default: each spec's, float32)."""
+    import torch
+
+    from repro_torch.models.params import is_spec
+    from repro_torch.models.transformer import model_specs
+
+    def carry(spec, arr, path: str):
+        if is_spec(spec):
+            a = np.asarray(arr)
+            if a.shape != tuple(spec.shape):
+                raise ValueError(f"{cfg.name}: {path} has shape {a.shape}, "
+                                 f"expected {tuple(spec.shape)}")
+            return torch.tensor(a, dtype=dtype or spec.dtype,
+                                device=device)
+        if not isinstance(arr, dict):
+            raise ValueError(f"{cfg.name}: {path} should be a dict of "
+                             f"{sorted(spec)}, got {type(arr).__name__}")
+        if set(arr) != set(spec):
+            raise ValueError(
+                f"{cfg.name}: {path} has keys {sorted(arr)}, expected "
+                f"{sorted(spec)}")
+        return {k: carry(spec[k], arr[k], f"{path}/{k}") for k in spec}
+
+    return carry(model_specs(cfg), tree, "params")

@@ -11,9 +11,9 @@ the torch ``device`` and per-design ``upper_bounds`` arrays on
 ``BatchedEvaluator``.
 
 ``faults`` carries a :class:`~repro_torch.core.faults.FaultPlan`'s JSON
-(the same schedule format as the reference's).  ``shards``, whose
-machinery is not ported yet, is kept so reference configs round-trip,
-but raises ``NotImplementedError`` when set.
+(the same schedule format as the reference's).  ``shards`` selects the
+row-sharded ``"mesh"`` backend over that many devices
+(:mod:`repro_torch.core.backends.mesh`).
 
 The legacy keyword spellings (``backend=``, ``max_iters=``,
 ``use_pallas=``, ...) still work on the service's constructors through
@@ -30,11 +30,6 @@ from typing import Optional
 
 __all__ = ["EvalConfig", "resolve_config", "same_config"]
 
-#: field -> (value that means "off", ROADMAP item that ports it)
-_NOT_PORTED = {
-    "shards": (None, "P11 (multi-device row sharding)"),
-}
-
 
 @dataclasses.dataclass(frozen=True)
 class EvalConfig:
@@ -44,7 +39,8 @@ class EvalConfig:
         backend: ``"cuda"`` (alias ``"pallas"``, the hand-written
             kernels), ``"fixpoint"`` (alias ``"jax"``, the plain torch
             fixpoint), ``"numpy"``/``"worklist"`` (CPU worklist with
-            incremental re-simulation) or ``"auto"`` (one-shot
+            incremental re-simulation), ``"mesh"`` (alias ``"sharded"``,
+            rows sharded over devices) or ``"auto"`` (one-shot
             per-design calibration probe).
         max_iters: fixpoint iteration cap for the batched backends.
         condense: ``"auto"`` condenses once per design and routes
@@ -63,7 +59,10 @@ class EvalConfig:
             minimal deadlock-free depths (``FifoAdvisor.min_safe_depths``).
         faults: JSON of a :class:`~repro_torch.core.faults.FaultPlan`
             to inject (chaos testing only; None = no injection).
-        shards: reference field, not ported yet (must stay off).
+        shards: shard batched evaluation over this many devices (forces
+            the ``"mesh"`` backend; hetero campaigns and services shard
+            their packed cross-design dispatch instead).  None =
+            unsharded.
     """
 
     backend: str = "cuda"
@@ -82,11 +81,9 @@ class EvalConfig:
                 f"EvalConfig.condense must be 'auto' or None, got "
                 f"{self.condense!r} (pass prebuilt rungs via the "
                 f"evaluator's rungs= argument instead)")
-        for name, (off, item) in _NOT_PORTED.items():
-            if getattr(self, name) != off:
-                raise NotImplementedError(
-                    f"EvalConfig.{name} is not ported yet: ROADMAP {item}")
         object.__setattr__(self, "max_iters", int(self.max_iters))
+        if self.shards is not None:
+            object.__setattr__(self, "shards", int(self.shards))
 
     # ------------------------------------------------------ serialization
     def to_dict(self) -> dict:

@@ -80,8 +80,8 @@ class CrossSessionBatcher:
         # CampaignSpec.hetero): a pool would only idle, so the two are
         # mutually exclusive — normalized here, surfaced by the CLI
         self.workers = 0 if hetero else int(workers)
-        #: shard the hetero dispatch over this many devices (not ported
-        #: yet: ROADMAP P11; the dispatcher raises when it is set)
+        #: shard the hetero dispatch over this many devices; only
+        #: meaningful with hetero=True
         self.shards = shards
         self.router = RoundRouter(registry)
         self.rounds = 0
@@ -210,8 +210,8 @@ class AdvisoryService:
             faster).
         workers: worklist worker processes for parallel lanes (0 =
             evaluate inline).
-        shards: shard the hetero dispatch over this many devices (not
-            ported yet: ROADMAP P11).
+        shards: shard the hetero dispatch over this many devices of the
+            registry's kind; requires ``hetero=True`` to matter.
         progress_events: default per-session progress streaming flag.
         max_sessions: admission-control cap on concurrently *running*
             sessions; :meth:`open_session` raises

@@ -74,15 +74,17 @@ class BatchedEvaluator:
     ``config`` is the shared :class:`~repro_torch.core.config.EvalConfig`.
     Runtime objects stay explicit keywords: ``rungs`` is a prebuilt
     :class:`~repro_torch.core.condense.CondensedGraph` (or list) to use
-    verbatim, and ``device`` the torch device of the tensor backends
-    (``None`` = CUDA).
+    verbatim, ``device`` the torch device of the tensor backends
+    (``None`` = CUDA), and ``mesh`` an explicit
+    :class:`repro_torch.launch.mesh.Mesh`.  A mesh or ``config.shards``
+    selects the sharded ``"mesh"`` backend, as in the reference.
     """
 
     #: how many solved worklist states to keep for incremental re-solves
     STATE_CACHE_CAP = 128
 
     def __init__(self, g: SimGraph, config: Optional[EvalConfig] = None,
-                 *, rungs=None, device=None):
+                 *, rungs=None, device=None, mesh=None):
         config = config if config is not None else _EVALUATOR_DEFAULT
         if g.latency_upper_bound() > F32_EXACT_LIMIT:
             raise ValueError(
@@ -94,19 +96,29 @@ class BatchedEvaluator:
         self.device = device
         self.calibration = None
         backend = config.backend
+        if (mesh is not None or config.shards is not None) \
+                and backend not in ("mesh", "sharded"):
+            backend = "mesh"
         if backend == "auto":
             backend = self._calibrate()
         self.config = config.replace(backend=backend)
         self.backend = backend
-        self._impl = get_backend(backend)(max_iters=self.max_iters,
-                                          device=device)
+        if backend in ("mesh", "sharded"):
+            from repro_torch.core.backends.mesh import MeshBackend
+            self._impl = MeshBackend(max_iters=self.max_iters, mesh=mesh,
+                                     shards=config.shards, device=device)
+        else:
+            self._impl = get_backend(backend)(max_iters=self.max_iters,
+                                              device=device)
         self._impl.prepare(g)
         if isinstance(self._impl, WorklistBackend):
             self._worklist = self._impl
         else:
             self._worklist = WorklistBackend(max_iters=self.max_iters)
             self._worklist.prepare(g)
-        self.dispatch = DispatchPolicy(self._worklist)
+        self.dispatch = DispatchPolicy(
+            self._worklist,
+            shard_multiple=getattr(self._impl, "shard_multiple", 1))
         self._states: "OrderedDict[bytes, WorklistState]" = OrderedDict()
         self.condensation = self._build_cascade(
             config.condense if rungs is None else rungs)
@@ -156,11 +168,17 @@ class BatchedEvaluator:
         The candidates are the numpy worklist and the tensor backend of
         this evaluator's device: the CUDA kernels on a CUDA device, the
         plain torch fixpoint on the CPU (the kernels' plain versions are
-        their CPU oracle, not a contender there).  The probe timings are
-        kept in ``self.calibration``.
+        their CPU oracle, not a contender there), plus the row-sharded
+        mesh over every card when ``device`` is ``"cuda"`` and the host
+        has more than one.  The probe timings are kept in
+        ``self.calibration``.
         """
+        import torch
         dev = resolve_device(self.device)
         candidates = ["numpy", "cuda" if dev.type == "cuda" else "fixpoint"]
+        if dev.type == "cuda" and dev.index is None \
+                and torch.cuda.device_count() > 1:
+            candidates.append("mesh")
         u = np.asarray(self.g.upper_bounds, dtype=np.int64)
         rng = np.random.default_rng(0)
         probe = np.stack([np.maximum(

@@ -16,10 +16,15 @@ fixpoint differs between inners:
 :func:`make_hetero_batched_eval` is the cross-design closure: rows of many
 graphs in one K2 launch in its per-design-table mode (the plain
 ``fifo_eval_ref_hetero`` on the CPU).
+
+Each closure takes ``mesh=`` (:mod:`repro_torch.launch.mesh`): the rows
+are then split into contiguous blocks, one per shard, and every shard
+launches its own kernel on its device (:func:`_shard_over_rows`).
 """
 
 from __future__ import annotations
 
+import dataclasses
 from collections import Counter
 from typing import Callable, Optional, Tuple
 
@@ -63,24 +68,82 @@ def _numpy(*xs) -> Tuple[np.ndarray, ...]:
     return tuple(x.cpu().numpy() for x in xs)
 
 
+def _rows(a: np.ndarray, dev: torch.device) -> torch.Tensor:
+    return torch.as_tensor(np.asarray(a, dtype=np.int32), device=dev)
+
+
+def _devices(device, mesh) -> Tuple[torch.device, ...]:
+    """The distinct devices a closure runs on: the mesh's, or one."""
+    if mesh is None:
+        return (resolve_device(device),)
+    return tuple(dict.fromkeys(torch.device(d) for d in mesh.devices))
+
+
+def _shard_over_rows(run: Callable, mesh, kind: str) -> Callable:
+    """Partition the rows over ``mesh``: shard ``i`` runs ``run(device_i,
+    *blocks, **fixed)`` on the ``i``-th contiguous block of every row
+    array, and the numpy results are gathered in shard order.
+
+    Every shard is launched before any result is read back, so shards on
+    different cards overlap.  Rows are independent (one fixpoint per
+    candidate config) and nothing crosses shards, so the result is
+    bit-identical to the unsharded call.  The row count must be a
+    multiple of ``mesh.size`` (the backends pad by repeating the last
+    row).  Each shard's launch counts in :data:`DISPATCH_COUNTS` under
+    ``"<kind>@shard<i>"``.
+    """
+    devices = tuple(torch.device(d) for d in mesh.devices)
+    k = len(devices)
+
+    def call(*row_arrays, **fixed):
+        c = row_arrays[0].shape[0]
+        if c % k:
+            raise ValueError(f"{c} rows do not split over {k} shards; pad "
+                             f"the batch to a multiple of the mesh size")
+        b = c // k
+        outs = []
+        for i, dev in enumerate(devices):
+            DISPATCH_COUNTS[f"{kind}@shard{i}"] += 1
+            outs.append(run(dev, *(a[i * b:(i + 1) * b]
+                                   for a in row_arrays), **fixed))
+        parts = [_numpy(*o) for o in outs]
+        return tuple(np.concatenate(col) for col in zip(*parts))
+
+    return call
+
+
+def _over(run: Callable, device, mesh, kind: str) -> Callable:
+    """``run(dev, *rows, **fixed)`` once on ``device``, or over the shards
+    of ``mesh``; results as numpy."""
+    if mesh is not None:
+        return _shard_over_rows(run, mesh, kind)
+    dev = resolve_device(device)
+
+    def call(*row_arrays, **fixed):
+        return _numpy(*run(dev, *row_arrays, **fixed))
+    return call
+
+
 def make_batched_eval(g, use_ref: bool = False, max_iters: int = 64,
-                      with_times: bool = False, device=None) -> Callable:
+                      with_times: bool = False, device=None,
+                      mesh=None) -> Callable:
     """Build the batched evaluation closure for a graph (raw or condensed:
     the condensation offsets ride the shared operands).
 
     ``call(depths) -> (lat f32, bram i32, status i8)`` as numpy arrays,
     plus the (C, E_pad) final times (f32) with ``with_times``.
-    ``device=None`` means ``cuda``.
+    ``device=None`` means ``cuda``.  ``mesh`` (a
+    :class:`repro_torch.launch.mesh.Mesh`) shards the rows over its
+    devices instead, the operands copied once to each distinct device; the
+    row count must then be a multiple of ``mesh.size``.
     """
     max_iters = int(max_iters)
-    dev = resolve_device(device)
-    ops = get_operands(g, dev)
+    opses = {d: get_operands(g, d) for d in _devices(device, mesh)}
     inner = fifo_eval_plain if use_ref else fifo_eval
 
-    def call(depth_matrix: np.ndarray) -> Tuple[np.ndarray, ...]:
-        DISPATCH_COUNTS["batched"] += 1
-        depths = torch.as_tensor(np.asarray(depth_matrix, dtype=np.int32),
-                                 device=dev)
+    def run(dev, depth_matrix):
+        ops = opses[dev]
+        depths = _rows(depth_matrix, dev)
         rd_lat_e, bp_idx, bp_valid, bp_base, structural = depth_operands(
             ops, depths)
         out, times = inner(ops.delta, ops.seg_start, ops.is_read,
@@ -93,35 +156,41 @@ def make_batched_eval(g, use_ref: bool = False, max_iters: int = 64,
         bram = bram_count_torch(depths, ops.widths[None, :]).sum(
             dim=1, dtype=torch.int32)
         if with_times:
-            return _numpy(lat, bram, status, times)
-        return _numpy(lat, bram, status)
+            return lat, bram, status, times
+        return lat, bram, status
+
+    go = _over(run, device, mesh, "batched")
+
+    def call(depth_matrix: np.ndarray) -> Tuple[np.ndarray, ...]:
+        DISPATCH_COUNTS["batched"] += 1
+        return go(depth_matrix)
 
     return call
 
 
 def make_condensed_eval(cg, max_iters: int = 64, with_times: bool = False,
-                        device=None) -> Optional[Callable]:
+                        device=None, mesh=None) -> Optional[Callable]:
     """Build the FUSED condensed evaluation closure for a CondensedGraph.
 
-    One K1 launch per batch evaluates the condensed fixpoint AND the
-    exactness certificate, returning ``call(depths) -> (lat, bram,
-    status, cert)`` (numpy) — ``cert`` is the per-row pass/fail mask with
-    ``verify_rows`` semantics, True only on CONVERGED rows, so the rung
-    cascade accepts/escalates rows without the event-time matrix ever
-    leaving the device.  Returns None when the graph has no expressible
-    certificate tables (the caller keeps the host verifier).
+    One K1 launch per batch (per shard under ``mesh``) evaluates the
+    condensed fixpoint AND the exactness certificate, returning
+    ``call(depths) -> (lat, bram, status, cert)`` (numpy) — ``cert`` is
+    the per-row pass/fail mask with ``verify_rows`` semantics, True only
+    on CONVERGED rows, so the rung cascade accepts/escalates rows without
+    the event-time matrix ever leaving the device.  Returns None when the
+    graph has no expressible certificate tables (the caller keeps the
+    host verifier).  ``mesh`` as in :func:`make_batched_eval`.
     """
-    dev = resolve_device(device)
-    ops = get_operands(cg, dev)
-    ct = get_cert_tables(cg, dev)
-    if ct is None:
+    devs = _devices(device, mesh)
+    opses = {d: get_operands(cg, d) for d in devs}
+    cts = {d: get_cert_tables(cg, d) for d in devs}
+    if cts[devs[0]] is None:
         return None
     max_iters = int(max_iters)
 
-    def call(depth_matrix: np.ndarray) -> Tuple[np.ndarray, ...]:
-        DISPATCH_COUNTS["condensed"] += 1
-        depths = torch.as_tensor(np.asarray(depth_matrix, dtype=np.int32),
-                                 device=dev)
+    def run(dev, depth_matrix):
+        ops, ct = opses[dev], cts[dev]
+        depths = _rows(depth_matrix, dev)
         rd_lat_e, bp_idx, bp_valid, bp_base, structural = depth_operands(
             ops, depths)
         csrc, cdst, cthr, cval = cert_row_operands(ops, ct, depths)
@@ -140,7 +209,13 @@ def make_condensed_eval(cg, max_iters: int = 64, with_times: bool = False,
         res = (lat, bram, status, cert)
         if with_times:
             res = res + (times,)
-        return _numpy(*res)
+        return res
+
+    go = _over(run, device, mesh, "condensed")
+
+    def call(depth_matrix: np.ndarray) -> Tuple[np.ndarray, ...]:
+        DISPATCH_COUNTS["condensed"] += 1
+        return go(depth_matrix)
 
     return call
 
@@ -151,29 +226,35 @@ def make_hetero_batched_eval(max_iters: int = 64, device=None,
 
     ``call(tables, table_of_row, depths) -> (latency i64, bram i64,
     status i8)`` (numpy): ``tables`` a :class:`~repro_torch.core.backends
-    .operands.HeteroTables` on this closure's device, ``table_of_row``
-    (C,) and ``depths`` (C, F*) numpy, as
-    :func:`~repro_torch.core.backends.operands.stack_rows` makes them.
-    Every row reads its own design's tables, so one launch mixes rows
-    of many graphs: K2 in its per-design-table mode on a CUDA device, the
-    plain ``fifo_eval_ref_hetero`` on the CPU.  ``device=None`` means
-    ``cuda``.  ``mesh`` (row sharding over devices) is ROADMAP P11.
+    .operands.HeteroTables`, ``table_of_row`` (C,) and ``depths`` (C, F*)
+    numpy, as :func:`~repro_torch.core.backends.operands.stack_rows` makes
+    them.  Every row reads its own design's tables, so one launch mixes
+    rows of many graphs: K2 in its per-design-table mode on a CUDA
+    device, the plain ``fifo_eval_ref_hetero`` on the CPU.
+    ``device=None`` means ``cuda``.  ``mesh`` shards the rows over its
+    devices (``table_of_row`` is sliced with them), with the tables
+    copied once to each distinct device that does not hold them; the row
+    count must then be a multiple of ``mesh.size``.
     """
-    if mesh is not None:
-        raise NotImplementedError(
-            "hetero row sharding over devices is not ported yet: ROADMAP "
-            "P11 (multi-device row sharding)")
     max_iters = int(max_iters)
-    dev = resolve_device(device)
+    copies: dict = {}                   # device -> (tables, its copy)
 
-    def call(tables: HeteroTables, table_of_row: np.ndarray,
-             depth_matrix: np.ndarray
-             ) -> Tuple[np.ndarray, np.ndarray, np.ndarray]:
-        DISPATCH_COUNTS["hetero"] += 1
-        tor = torch.as_tensor(np.asarray(table_of_row, dtype=np.int32),
-                              device=dev)
-        depths = torch.as_tensor(np.asarray(depth_matrix, dtype=np.int32),
-                                 device=dev)
+    def tables_on(tables: HeteroTables, dev) -> HeteroTables:
+        here = tables.bound.device
+        if here == dev or (dev.index is None and here.type == dev.type):
+            return tables
+        hit = copies.get(dev)
+        if hit is None or hit[0] is not tables:
+            hit = copies[dev] = (tables, dataclasses.replace(tables, **{
+                f.name: getattr(tables, f.name).to(dev)
+                for f in dataclasses.fields(tables)
+                if isinstance(getattr(tables, f.name), torch.Tensor)}))
+        return hit[1]
+
+    def run(dev, table_of_row, depth_matrix, tables):
+        tables = tables_on(tables, dev)
+        tor = _rows(table_of_row, dev)
+        depths = _rows(depth_matrix, dev)
         idx = tor.long()
         rd_lat_e, bp_idx, bp_valid, structural, w = hetero_depth_operands(
             tables, idx, depths)
@@ -185,7 +266,15 @@ def make_hetero_batched_eval(max_iters: int = 64, device=None,
         lat = torch.maximum(out[:, 0], tables.taskless[idx])
         status = _status(out, structural)
         bram = bram_count_torch(depths, w).sum(dim=1, dtype=torch.int32)
-        lat, bram, status = _numpy(lat, bram, status)
+        return lat, bram, status
+
+    go = _over(run, device, mesh, "hetero")
+
+    def call(tables: HeteroTables, table_of_row: np.ndarray,
+             depth_matrix: np.ndarray
+             ) -> Tuple[np.ndarray, np.ndarray, np.ndarray]:
+        DISPATCH_COUNTS["hetero"] += 1
+        lat, bram, status = go(table_of_row, depth_matrix, tables=tables)
         return (np.asarray(np.rint(lat), dtype=np.int64),
                 np.asarray(bram, dtype=np.int64), status)
 

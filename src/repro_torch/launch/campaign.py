@@ -53,8 +53,10 @@ def parse_args(argv=None):
                    help="pack cross-design batches into one fixpoint "
                         "dispatch (one K2 launch on the card)")
     p.add_argument("--shards", type=int, default=None, metavar="N",
-                   help="shard batched evaluation over N devices (not "
-                        "ported yet: ROADMAP P11)")
+                   help="shard batched evaluation over N devices "
+                        "(with --hetero: shards the packed cross-design "
+                        "batch; otherwise forces the mesh backend); with "
+                        "--device cpu the CPU is repeated N times")
     p.add_argument("--checkpoint", default=None, metavar="PATH",
                    help="write campaign state to this .npz periodically")
     p.add_argument("--checkpoint-every", type=int, default=8,

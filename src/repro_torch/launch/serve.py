@@ -310,8 +310,9 @@ def parse_args(argv=None):
     p.add_argument("--workers", type=int, default=0,
                    help="worklist worker processes (0 = inline)")
     p.add_argument("--shards", type=int, default=None, metavar="N",
-                   help="shard the packed cross-design dispatch over N "
-                        "devices (not ported yet: ROADMAP P11)")
+                   help="with --hetero: shard the packed cross-design "
+                        "dispatch over N devices (with --device cpu the "
+                        "CPU is repeated N times)")
     p.add_argument("--no-progress", action="store_true",
                    help="disable per-round progress events")
     p.add_argument("--snapshot-dir", default=None, metavar="DIR",
@@ -340,7 +341,8 @@ def load_kernels(service) -> None:
     if service.registry.device.type != "cuda":
         return
     if not (service.batcher.want_hetero
-            or service.config.backend in ("cuda", "pallas", "auto")):
+            or service.config.backend in ("cuda", "pallas", "auto",
+                                          "mesh", "sharded")):
         return
     import time
 
@@ -353,10 +355,10 @@ def load_kernels(service) -> None:
 
 
 async def amain(args) -> int:
-    if args.shards is not None:
-        raise NotImplementedError(
-            "serve --shards is not ported yet: ROADMAP P11 (multi-device "
-            "row sharding)")
+    if args.shards and not args.hetero:
+        print("note: --shards only shards the --hetero dispatch; "
+              "use --backend mesh for per-design sharding",
+              file=sys.stderr)
     if args.hetero and args.workers:
         print("note: --workers is ignored with --hetero (the fused "
               "dispatch owns every full-solve row in this process)",
@@ -378,7 +380,8 @@ async def amain(args) -> int:
                             hetero=args.hetero, workers=args.workers,
                             progress_events=not args.no_progress,
                             max_sessions=args.max_sessions,
-                            faults=faults, device=args.device)
+                            shards=args.shards, faults=faults,
+                            device=args.device)
     load_kernels(server.service)
     # registry-ready timing: everything between here and the "ready"
     # line is design preparation (snapshot load or cold trace), the part

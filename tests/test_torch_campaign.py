@@ -227,8 +227,9 @@ def test_spec_deprecation_shims():
                      backend="numpy", eval=EvalConfig())
     with warnings.catch_warnings():
         warnings.simplefilter("ignore", DeprecationWarning)
-        with pytest.raises(NotImplementedError, match="ROADMAP P11"):
-            CampaignSpec(designs=("gemm",), optimizers=("sa",), shards=2)
+        spec = CampaignSpec(designs=("gemm",), optimizers=("sa",),
+                            shards=2)
+    assert spec.shards == spec.eval.shards == 2
 
 
 def test_result_store_summary_roundtrip(tmp_path):

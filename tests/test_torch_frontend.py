@@ -110,5 +110,11 @@ def test_eval_config_round_trips():
 
 @pytest.mark.parametrize("field,value", [("shards", 2)])
 def test_eval_config_unported_flags_raise(field, value):
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
-        EvalConfig(**{field: value})
+    """Every reference field is live in the port: a config that sets it
+    round-trips through JSON and equals the reference's dict."""
+    cfg = EvalConfig(**{field: value})
+    assert getattr(cfg, field) == value
+    assert EvalConfig.from_dict(json.loads(json.dumps(cfg.to_dict()))) \
+        == cfg
+    ref = RefEvalConfig(backend="cuda", **{field: value})
+    assert cfg.to_dict() == ref.to_dict()

@@ -326,7 +326,22 @@ def test_hetero_dispatch_equals_reference_and_worklist(graphs, max_iters,
 
 
 def test_hetero_sharding_names_its_roadmap_item(graphs):
-    with pytest.raises(NotImplementedError, match="ROADMAP P11"):
-        HeteroDispatcher({"m2": graphs["m2"][1]}, shards=2, device="cpu")
-    with pytest.raises(NotImplementedError, match="ROADMAP P11"):
-        make_hetero_batched_eval(device="cpu", mesh=object())
+    """Row sharding of the cross-design dispatch: ``shards=2`` on the CPU
+    gives the unsharded dispatcher's rows, and the closure over an
+    explicit 2-shard mesh (tables copied per shard) the solo closure's."""
+    from repro_torch.launch.mesh import make_eval_mesh
+    g = {"m2": graphs["m2"][1], "gemm": graphs["gemm"][1]}
+    items = [(k, _rows(v, 5, seed=i)) for i, (k, v) in enumerate(g.items())]
+    sharded = HeteroDispatcher(g, shards=2, device="cpu")
+    solo = HeteroDispatcher(g, device="cpu")
+    assert sharded.shard_multiple == 2 and solo.shard_multiple == 1
+    for got, want in zip(sharded.dispatch(items), solo.dispatch(items)):
+        for a, b in zip(got, want):
+            np.testing.assert_array_equal(a, b)
+    _, (tables, tor, depths) = _batch(graphs, 38, seed=300)
+    mesh = make_eval_mesh(2, device="cpu")
+    got = make_hetero_batched_eval(device="cpu", mesh=mesh)(tables, tor,
+                                                           depths)
+    want = make_hetero_batched_eval(device="cpu")(tables, tor, depths)
+    for a, b in zip(got, want):
+        np.testing.assert_array_equal(a, b)

@@ -33,7 +33,10 @@ def _modules():
 
 def test_importing_every_module_loads_no_jax_and_no_reference():
     mods = _modules()
-    assert "repro_torch.kernels.fifo_eval.condensed" in mods
+    for m in ("kernels.fifo_eval.condensed", "core.backends.mesh",
+              "launch.mesh", "launch.decode_demo", "models.transformer",
+              "models.moe", "models.ssm", "configs.base", "train.steps"):
+        assert "repro_torch." + m in mods, m
     code = (
         "import importlib, sys\n"
         f"for m in {mods!r}:\n"
@@ -109,6 +112,37 @@ def test_cpu_is_only_taken_when_asked(no_cuda):
 
 @pytest.mark.parametrize("backend", ["mesh", "sharded"])
 def test_unported_backends_name_their_roadmap_item(backend):
+    """Both spellings of the row-sharded backend build a ``MeshBackend``
+    on the CPU that equals the plain fixpoint; without a card they raise
+    unless the CPU is asked for."""
+    from repro_torch.core.backends.mesh import MeshBackend
     g = build_simgraph(mult_by_2(8))
-    with pytest.raises(NotImplementedError, match="ROADMAP P"):
-        BatchedEvaluator(g, EvalConfig(backend=backend), device="cpu")
+    rows = np.array([[7, 1], [2, 2], [9, 3]])
+    ev = BatchedEvaluator(g, EvalConfig(backend=backend, shards=2),
+                          device="cpu")
+    assert isinstance(ev._impl, MeshBackend) and ev._impl.n_shards == 2
+    want = BatchedEvaluator(g, EvalConfig(backend="fixpoint"),
+                            device="cpu").evaluate(rows)
+    for a, b in zip(ev.evaluate(rows), want):
+        np.testing.assert_array_equal(a, b)
+    assert get_backend(backend) is MeshBackend
+
+
+def test_new_entry_points_raise_without_cuda(no_cuda):
+    """The LLM demo and the default device mesh need the card; the CPU
+    is taken only when asked for."""
+    from repro_torch.launch import decode_demo
+    from repro_torch.launch.mesh import (make_campaign_mesh,
+                                         make_eval_mesh)
+    with pytest.raises(RuntimeError, match="no CUDA device"):
+        decode_demo.main(["--arch", "qwen2-1.5b", "--batch", "1",
+                          "--prompt-len", "8", "--gen", "2"])
+    for make in (make_eval_mesh, make_campaign_mesh):
+        with pytest.raises(RuntimeError, match="no CUDA device"):
+            make()
+    g = build_simgraph(mult_by_2(8))
+    with pytest.raises(RuntimeError, match="no CUDA device"):
+        BatchedEvaluator(g, EvalConfig(backend="mesh", shards=1))
+    assert make_eval_mesh(3, device="cpu").devices == \
+        (torch.device("cpu"),) * 3
+    assert make_eval_mesh(2, devices=["cuda:0"] * 2).size == 2

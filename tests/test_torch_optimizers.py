@@ -178,8 +178,10 @@ def test_eval_config_round_trips_with_pruning_flags():
     ref = RefEvalConfig(backend="pallas", local_bounds=True,
                         channel_bounds=True, certified_floor=True)
     assert EvalConfig.from_dict(ref.to_dict()).to_dict() == ref.to_dict()
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
-        cfg.replace(shards=2)
+    sharded = cfg.replace(shards=2)
+    assert EvalConfig.from_dict(sharded.to_dict()) == sharded
+    assert sharded.to_dict() == dict(ref.replace(shards=2).to_dict(),
+                                     backend="cuda")
     # a fault plan rides in the config, as in the reference
     plan = cfg.replace(faults='{"faults": []}')
     assert EvalConfig.from_dict(plan.to_dict()) == plan

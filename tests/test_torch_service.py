@@ -686,10 +686,17 @@ def test_serve_cli_stdio_transcript_equals_reference(tmp_path):
         replies[4]["result"]["frontier"]
 
 
-def test_serve_shards_names_its_roadmap_item():
-    from repro_torch.launch import serve
-    with pytest.raises(NotImplementedError, match="ROADMAP P11"):
-        serve.main(["--stdio", "--device", "cpu", "--shards", "2"])
+def test_serve_shards_names_its_roadmap_item(tmp_path):
+    """``--shards 2`` shards the hetero dispatch over two CPU shards: the
+    transcript equals the unsharded server's."""
+    script = SCRIPT[:6] + [SCRIPT[-1]]
+    base = ["--hetero", "--device", "cpu"]
+    got, _ = _serve("repro_torch.launch.serve", base + ["--shards", "2"],
+                    script, tmp_path / "sharded")
+    want, _ = _serve("repro_torch.launch.serve", base, script,
+                     tmp_path / "solo")
+    same_frames(got, want)
+    assert [f["ok"] for f in got if "event" not in f] == [True] * 7
 
 
 def test_no_warnings_on_the_default_paths():
