@@ -139,8 +139,30 @@ Phases, each printing JSON lines (any failure raises and exits nonzero):
    full forward over prompt and generated tokens at the same positions,
    and ``make_decode_step`` picking the same tokens; prefill seconds,
    decode tokens/s and ``torch.cuda.max_memory_allocated`` are printed;
+13. LLM training (``repro_torch.train``), TF32 off (the flags are
+   printed): (a) each reduced arch, the same weights and ``SyntheticLM``
+   batch on the card and on the CPU, ``loss_fn`` and every gradient leaf
+   at float32 to the CPU tests' tolerances; (b) ``python -m
+   repro_torch.launch.train`` in fresh processes: qwen2-1.5b 6 steps with
+   checkpoints every 3, started twice (the second resumes with nothing
+   left), a 3-then-6 split run whose last loss is within 5e-3 of the
+   straight one, and minicpm-2b over 100 steps, whose loss must fall;
+   (c) qwen2-1.5b at full width (1,543,714,304 parameters, float32
+   master weights and AdamW state from ``init_train_state`` with a
+   seeded generator on the card), batch 4 x 1024 ``SyntheticLM``
+   tokens: the first step's loss equals ``make_eval_step``'s, ``accum=2``
+   from a copy of the state gives the same loss, ``grad_norm``, moments
+   and updated parameters, and gradients with remat on and off (on 2 x
+   1024 tokens) are equal, with less peak memory under remat; 3 steps of
+   ``make_train_step`` at float32, then 3 at bf16 on the same batches
+   (their first loss within 5e-2 of the float32 eval loss of the state
+   they start from): seconds per step and tokens/s (steps 2-3),
+   ``max_memory_allocated`` (steps 2-3), loss and ``grad_norm`` beside
+   the bound (the larger of 24 N bytes over 3.35 TB/s and 8 N
+   operations a token over 67 or 989 TFLOP/s), and one more step of
+   each under ``torch.profiler`` (device idle share, largest kernels);
 
-Phases 11 and 12 run after phase 7, before 8.  Then the ``{"kernels":
+Phases 11, 12 and 13 run after phase 7, before 8.  Then the ``{"kernels":
 [...]}`` line (with each kernel's launches in phases 4, 5, 6, 10 and
 11), the ``nvidia-smi`` line, and last
 ``{"ok": true, "device": {...}}``.  Without a CUDA device, or outside a
@@ -233,6 +255,23 @@ LLM_PROMPT = 1024
 LLM_GEN = 32
 LLM_FULL_F32_TOL = 1e-4
 LLM_FULL_BF16_TOL = 5e-2
+#: phase 13: the card against the CPU on the reduced archs at float32, to
+#: the CPU tests' tolerances (tests/test_torch_train_steps.py: the loss
+#: to rtol 1e-5, each gradient leaf to rtol = atol / max|CPU| = 1e-4)
+TRAIN_LOSS_TOL = 1e-5
+TRAIN_GRAD_TOL = 1e-4
+#: phase 13: the train CLI's 3-then-6 split run against the straight one
+#: (the reference's test_train_resume_end_to_end bound)
+TRAIN_CLI_SPLIT_TOL = 5e-3
+#: phase 13 at full width: qwen2-1.5b, batch 4 x 1024 SyntheticLM tokens,
+#: 3 steps at float32 and 3 at bf16 (AdamW, float32 master weights)
+TRAIN_BATCH = 4
+TRAIN_SEQ = 1024
+TRAIN_STEPS = 3
+#: the remat on/off comparison takes the first 2 rows of the batch:
+#: without remat, 4 x 1024 tokens keep ~40 GB of activations beside the
+#: 18.5 GB state and two gradient sets (~75 of the card's 80 GB)
+TRAIN_REMAT_ROWS = 2
 #: phase 10: the serve CLI's scripted transcript
 SERVE_SCRIPT = (
     {"op": "hello", "proto": 2},
@@ -1714,6 +1753,346 @@ def llm_phase(dev) -> dict:
     return out
 
 
+# ------------------------------------------------- LLM training (phase 13)
+def train_batch(raw: dict, dev) -> dict:
+    """A ``SyntheticLM`` batch as tensors on ``dev``."""
+    import torch
+    return {k: torch.as_tensor(v, device=dev) for k, v in raw.items()}
+
+
+def train_grads(cfg, params, batch, cdt, remat: bool = True):
+    """(loss, aux, gradient leaves) of ``loss_fn`` over every parameter
+    leaf, as the train step takes them."""
+    import torch
+    from repro_torch.models import params as pm
+    from repro_torch.train.steps import loss_fn
+    live = pm.tree_map(lambda t: t.detach().requires_grad_(), params)
+    loss, aux = loss_fn(cfg, live, batch, cdt, remat=remat)
+    grads = torch.autograd.grad(loss, pm.tree_leaves(live))
+    return loss.detach(), {k: v.detach() for k, v in aux.items()}, grads
+
+
+def dev_err(got, want) -> float:
+    """max |got - want| over max |want|, on the tensors' device."""
+    want = want.double()
+    return float((got.double() - want).abs().max() / want.abs().max())
+
+
+def dev_within(got, want, tol: float, keep=None) -> bool:
+    """``within`` on the tensors' device; ``keep`` masks the elements
+    compared (the scale stays the whole leaf's)."""
+    import torch
+    scale = float(want.abs().max())
+    if keep is not None:
+        got, want = got[keep], want[keep]
+    return bool(torch.allclose(got.double(), want.double(), rtol=tol,
+                               atol=tol * scale))
+
+
+def run_cli(cmds: dict, env) -> dict:
+    """Run ``python -m repro_torch.launch.train ARGS`` for every entry of
+    ``cmds`` at once, each in a fresh process; returns each one's stdout
+    and the dict it prints last.  Any process that fails stops them all."""
+    import ast
+    procs = {}
+    try:
+        for name, args in cmds.items():
+            procs[name] = subprocess.Popen(
+                [sys.executable, "-m", "repro_torch.launch.train", *args],
+                env=env, cwd=ROOT, stdout=subprocess.PIPE,
+                stderr=subprocess.PIPE, text=True)
+        out = {}
+        for name, p in procs.items():
+            stdout, stderr = p.communicate(timeout=600)
+            if p.returncode != 0:
+                raise AssertionError(f"train CLI {cmds[name]} exited "
+                                     f"{p.returncode}:\n{stdout[-3000:]}\n"
+                                     f"{stderr[-3000:]}")
+            out[name] = {"stdout": stdout, **ast.literal_eval(
+                stdout.strip().splitlines()[-1])}
+        return out
+    finally:
+        for p in procs.values():
+            if p.poll() is None:
+                p.kill()
+                p.wait()
+
+
+def train_cli(tmp: str) -> dict:
+    """Phase 13 (b): the train CLI resumes, a split run matches a straight
+    one, and MiniCPM's loss falls."""
+    env = dict(os.environ, PYTHONPATH=SRC)
+
+    def qwen(steps: int, ckpt: str) -> list:
+        return ["--arch", "qwen2-1.5b", "--steps", str(steps), "--batch",
+                "2", "--seq", "32", "--ckpt", os.path.join(tmp, ckpt),
+                "--save-every", "3", "--log-every", "100"]
+    t0 = time.perf_counter()
+    first = run_cli({"straight": qwen(6, "a"), "split3": qwen(3, "b"),
+                     "minicpm": ["--arch", "minicpm-2b", "--steps", "100"]},
+                    env)
+    second = run_cli({"again": qwen(6, "a"), "split6": qwen(6, "b")}, env)
+    wall = time.perf_counter() - t0
+    straight, minicpm = first["straight"], first["minicpm"]
+    again, split = second["again"], second["split6"]
+    gap = abs(split["last_loss"] - straight["last_loss"])
+    checks = {
+        "resumed_with_nothing_left": again["steps"] == 0
+        and "resumed from step 6" in again["stdout"],
+        "split_resumed_at_3": split["steps"] == 3
+        and "resumed from step 3" in split["stdout"],
+        "split_matches_straight": gap < TRAIN_CLI_SPLIT_TOL,
+        "minicpm_loss_falls": minicpm["last_loss"] < minicpm["first_loss"]}
+    row = {"phase": "train", "step": "cli", "wall_s": wall,
+           "straight_last_loss": straight["last_loss"],
+           "split_last_loss": split["last_loss"], "split_gap": gap,
+           "split_tol": TRAIN_CLI_SPLIT_TOL,
+           "minicpm_first_loss": minicpm["first_loss"],
+           "minicpm_last_loss": minicpm["last_loss"], **checks}
+    emit(row)
+    if not all(checks.values()):
+        raise AssertionError(f"train CLI: {row}")
+    return row
+
+
+def train_bound(n_params: int, cdt) -> dict:
+    """The least time the card could take for one full-width train step:
+    the larger of 8 N operations a token (forward, backward, and remat's
+    second forward) over the peak rate of ``cdt``, and the bytes of the
+    float32 parameters and both AdamW moments, each read and written once
+    (24 N), over the HBM rate."""
+    import torch
+    peak = BF16_OPS_PER_S if cdt == torch.bfloat16 else F32_OPS_PER_S
+    ops_s = 8 * n_params * TRAIN_BATCH * TRAIN_SEQ / peak
+    bytes_s = 24 * n_params / HBM_BYTES_PER_S
+    return {"bound_s": max(ops_s, bytes_s),
+            "bound_by": "operations" if ops_s >= bytes_s else "bytes",
+            "bound_tok_per_s": TRAIN_BATCH * TRAIN_SEQ / max(ops_s,
+                                                             bytes_s)}
+
+
+def train_full_width(dev) -> dict:
+    """Phase 13 (c): qwen2-1.5b at full width, float32 master weights and
+    AdamW state on the card.  The state is not checkpointed here: its
+    parameters and moments alone are 18.5 GB of ``.npy`` files, which
+    would take longer to write than the whole phase may (phase 13 (b)
+    and the CPU tests hold the checkpoints)."""
+    import torch
+    from repro_torch.configs import get_arch
+    from repro_torch.models import params as pm
+    from repro_torch.train.data import DataConfig, SyntheticLM
+    from repro_torch.train.optimizer import OptConfig
+    from repro_torch.train.steps import (init_train_state, make_eval_step,
+                                         make_train_step)
+    cfg = get_arch(LLM_FULL_ARCH)
+    (params, opt), init_s = wall_of(lambda: synced(dev, init_train_state(
+        cfg, torch.Generator(device=dev).manual_seed(0), device=dev)))
+    n_params = sum(t.numel() for t in pm.tree_leaves(params))
+    data = SyntheticLM(DataConfig(vocab=cfg.vocab, seq_len=TRAIN_SEQ,
+                                  global_batch=TRAIN_BATCH, seed=0), arch=cfg)
+    batches = [train_batch(data.batch(s), dev) for s in range(TRAIN_STEPS)]
+    out = {"n_params": n_params, "init_s": init_s}
+    failed = []
+
+    # the eval step on the initial state
+    ev = synced(dev, make_eval_step(cfg, cdt=torch.float32)(params,
+                                                            batches[0]))
+    # remat on and off: the same gradients, less memory with remat
+    half = {k: v[:TRAIN_REMAT_ROWS] for k, v in batches[0].items()}
+    grads, peaks, secs = {}, {}, {}
+    for remat in (True, False):
+        torch.cuda.synchronize(dev)
+        torch.cuda.reset_peak_memory_stats(dev)
+        base = torch.cuda.memory_allocated(dev)
+        (_, _, grads[remat]), secs[remat] = wall_of(lambda: synced(
+            dev, train_grads(cfg, params, half, torch.float32,
+                             remat=remat)))
+        peaks[remat] = torch.cuda.max_memory_allocated(dev) - base
+    remat_err = max(dev_err(a, b) for a, b in zip(grads[True],
+                                                   grads[False]))
+    remat_ok = all(dev_within(a, b, LLM_FULL_F32_TOL)
+                   for a, b in zip(grads[True], grads[False]))
+    del grads
+    row = {"phase": "train", "step": "remat", "arch": LLM_FULL_ARCH,
+           "batch": TRAIN_REMAT_ROWS, "seq": TRAIN_SEQ,
+           "grads_max_err_over_max": remat_err, "tol": LLM_FULL_F32_TOL,
+           "equal_within_tol": remat_ok,
+           "peak_bytes_above_state_remat": peaks[True],
+           "peak_bytes_above_state_no_remat": peaks[False],
+           "grad_s_remat": secs[True], "grad_s_no_remat": secs[False]}
+    emit(row)
+    if not remat_ok:
+        failed.append(f"remat on/off gradients differ: {remat_err}")
+    if not peaks[True] < peaks[False]:
+        failed.append(f"remat does not lower peak memory: {peaks}")
+    out["remat"] = row
+
+    # accum=2 from a copy of the same state, against the first accum=1
+    # step below
+    params2 = pm.tree_map(lambda t: t.clone(), params)
+    opt2 = pm.tree_map(lambda t: t.clone(), opt)
+    params2, opt2, met2 = synced(dev, make_train_step(
+        cfg, OptConfig(), cdt=torch.float32, accum=2)(params2, opt2,
+                                                      batches[0]))
+
+    for cdt in (torch.float32, torch.bfloat16):
+        step = make_train_step(cfg, OptConfig(), cdt=cdt)
+        if cdt == torch.bfloat16:
+            # the float32 loss of the state the bf16 steps start from, on
+            # their first batch (which the float32 steps trained on)
+            ev = make_eval_step(cfg, cdt=torch.float32)(params, batches[0])
+        times, mets = [], []
+        for i in range(TRAIN_STEPS):
+            (params, opt, met), s = wall_of(lambda: synced(
+                dev, step(params, opt, batches[i])))
+            times.append(s)
+            mets.append({k: float(v) for k, v in met.items()})
+            if cdt == torch.float32 and i == 0:
+                checks = train_first_step_checks(ev, met, met2, params, opt,
+                                                 params2, opt2)
+                del params2, opt2
+                emit({"phase": "train", "step": "first_step_checks",
+                      **checks})
+                failed += [f"{k}: {checks}" for k, v in checks.items()
+                           if v is False]
+                out["first_step"] = checks
+            if i == 0:
+                # the peak of the steady steps: the first float32 step
+                # runs beside the accum=2 copy of the state
+                torch.cuda.reset_peak_memory_stats(dev)
+        peak = torch.cuda.max_memory_allocated(dev)
+        s_per_step = sum(times[1:]) / (len(times) - 1)
+        name = str(cdt).replace("torch.", "")
+        # one more step under the profiler: how far the host holds the
+        # card back
+        (params, opt, _), wall, busy, top = profiled(
+            lambda: step(params, opt, batches[0]))
+        emit_profile(LLM_FULL_ARCH, f"train_step_{name}", wall, busy, top)
+        row = {"phase": "train", "step": "full_width", "arch": LLM_FULL_ARCH,
+               "cdt": name, "n_params": n_params, "layers": cfg.n_layers,
+               "d_model": cfg.d_model, "vocab": cfg.vocab,
+               "batch": TRAIN_BATCH, "seq": TRAIN_SEQ,
+               "step_s": times, "s_per_step": s_per_step,
+               "tokens_per_s": TRAIN_BATCH * TRAIN_SEQ / s_per_step,
+               "max_memory_allocated": peak,
+               "loss": [m["loss"] for m in mets],
+               "grad_norm": [m["grad_norm"] for m in mets],
+               "lr": [m["lr"] for m in mets],
+               "profiled_step_s": wall,
+               "device_idle_share": (1 - busy / wall) if busy is not None
+               else "not measured", **train_bound(n_params, cdt)}
+        if cdt == torch.bfloat16:
+            row.update(float32_eval_loss=float(ev["loss"]),
+                       bf16_vs_float32_loss_err=rel_err(
+                           row["loss"][0], float(ev["loss"])),
+                       tol=LLM_FULL_BF16_TOL)
+            if not within(row["loss"][0], float(ev["loss"]),
+                          LLM_FULL_BF16_TOL):
+                failed.append(f"bf16 loss {row['loss'][0]} is not the "
+                              f"float32 loss {float(ev['loss'])}")
+        emit(row)
+        if not all(torch.isfinite(torch.tensor(row["loss"] +
+                                               row["grad_norm"]))):
+            failed.append(f"{name}: loss or grad_norm not finite: {row}")
+        out[name] = row
+    if failed:
+        raise AssertionError("; ".join(failed))
+    return out
+
+
+def train_first_step_checks(ev, met, met2, params, opt, params2,
+                            opt2) -> dict:
+    """The first float32 step against the eval step on the same state
+    and batch, and against ``accum=2`` from a copy of that state: loss,
+    ``grad_norm``, both moments and, where the update is well conditioned
+    (the reference test's rule: ``|m| > 1e-3 max|m|`` on the leaf, or
+    ``m == 0``), the updated parameters."""
+    from repro_torch.models import params as pm
+    tol = LLM_FULL_F32_TOL
+    out = {"eval_loss": float(ev["loss"]), "train_loss": float(met["loss"]),
+           "accum2_loss": float(met2["loss"]),
+           "grad_norm": float(met["grad_norm"]),
+           "accum2_grad_norm": float(met2["grad_norm"]), "tol": tol}
+    out["eval_equal"] = within(out["train_loss"], out["eval_loss"],
+                               TRAIN_LOSS_TOL)
+    out["accum_loss_equal"] = within(out["accum2_loss"], out["train_loss"],
+                                     TRAIN_LOSS_TOL)
+    out["accum_grad_norm_equal"] = within(out["accum2_grad_norm"],
+                                          out["grad_norm"], tol)
+    errs = {"m": 0.0, "v": 0.0, "params": 0.0}
+    ok = True
+    kept = total = 0
+    for name, a_tree, b_tree in (("m", opt["m"], opt2["m"]),
+                                 ("v", opt["v"], opt2["v"])):
+        for a, b in zip(pm.tree_leaves(a_tree), pm.tree_leaves(b_tree)):
+            errs[name] = max(errs[name], dev_err(a, b))
+            ok &= dev_within(a, b, tol)
+    for a, b, m in zip(pm.tree_leaves(params), pm.tree_leaves(params2),
+                       pm.tree_leaves(opt2["m"])):
+        m = m.abs()
+        keep = (m == 0) | (m > 1e-3 * m.max())
+        kept, total = kept + int(keep.sum()), total + keep.numel()
+        errs["params"] = max(errs["params"], float(
+            (a - b)[keep].abs().max() / b.abs().max()))
+        ok &= dev_within(a, b, tol, keep)
+    out.update(accum_max_err_over_max=errs, accum_compared_share=kept / total,
+               accum_state_equal=ok)
+    return out
+
+
+def train_phase(dev) -> dict:
+    """Phase 13: LLM training on the card (see the docstring)."""
+    import tempfile
+    import torch
+    from repro_torch.configs import ARCHS, get_arch
+    from repro_torch.launch import decode_demo
+    from repro_torch.models import params as pm
+    from repro_torch.train.data import DataConfig, SyntheticLM
+    from repro_torch.train.steps import init_train_state
+    emit({"phase": "train", "step": "tf32_off", **decode_demo.no_tf32()})
+    cpu = torch.device("cpu")
+    out = {}
+    # (a) each reduced arch: loss and every gradient leaf, the card
+    # against the CPU, same weights and batch, float32
+    worst = 0.0
+    for arch in sorted(ARCHS):
+        cfg = get_arch(arch).reduced()
+        host, _ = init_train_state(cfg, torch.Generator().manual_seed(0))
+        card = pm.tree_map(lambda t: t.to(dev), host)
+        F = cfg.frontend_tokens
+        raw = SyntheticLM(DataConfig(vocab=cfg.vocab, seq_len=16 - F,
+                                     global_batch=4, seed=3),
+                          arch=cfg).batch(0)
+        want_loss, want_aux, want = train_grads(
+            cfg, host, train_batch(raw, cpu), torch.float32)
+        got_loss, got_aux, got = train_grads(
+            cfg, card, train_batch(raw, dev), torch.float32)
+        errs = [rel_err(g.cpu().numpy(), w.numpy())
+                for g, w in zip(got, want)]
+        loss_err = rel_err(got_loss.cpu().numpy(), want_loss.numpy())
+        ok = (within(got_loss.cpu().numpy(), want_loss.numpy(),
+                     TRAIN_LOSS_TOL)
+              and float(got_aux["tokens"]) == float(want_aux["tokens"])
+              and all(within(g.cpu().numpy(), w.numpy(), TRAIN_GRAD_TOL)
+                      for g, w in zip(got, want)))
+        emit({"phase": "train", "step": "card_vs_cpu", "arch": arch,
+              "loss": float(want_loss), "loss_err": loss_err,
+              "loss_tol": TRAIN_LOSS_TOL, "grad_leaves": len(errs),
+              "grad_max_err_over_max": max(errs), "grad_tol": TRAIN_GRAD_TOL,
+              "equal_within_tol": ok})
+        if not ok:
+            raise AssertionError(f"{arch}: card and CPU loss or gradients "
+                                 f"differ: loss {loss_err}, grads {errs}")
+        worst = max(worst, max(errs))
+    out["card_vs_cpu_max_err"] = worst
+    # (b) the train CLI in fresh processes
+    with tempfile.TemporaryDirectory(prefix="chip_smoke_train_") as tmp:
+        out["cli"] = train_cli(tmp)
+    # (c) qwen2-1.5b at full width
+    out.update(train_full_width(dev))
+    return out
+
+
 # ------------------------------------------------------------------ timing
 def cuda_ms(fn, reps: int) -> float:
     import torch
@@ -2051,9 +2430,9 @@ def run() -> int:
     fuzz_phase()
     emit({"phase": "fuzz_done", "seconds": round(time.perf_counter() - t0,
                                                  3)})
-    # phases 11 and 12 run here, before the timings, the profiler and the
-    # service: run after them, the host-bound full-width decode loop took
-    # twice as long
+    # phases 11, 12 and 13 run here, before the timings, the profiler and
+    # the service: run after them, the host-bound full-width decode loop
+    # took twice as long
     t0 = time.perf_counter()
     mesh = mesh_phase(dev, campaign["quick_numpy"])
     emit({"phase": "mesh_done",
@@ -2064,6 +2443,13 @@ def run() -> int:
     emit({"phase": "llm_done", "seconds": round(time.perf_counter() - t0, 3),
           "full_width": {k: llm[k]["decode_tok_per_s"]
                          for k in ("float32", "bfloat16")}})
+    t0 = time.perf_counter()
+    train = train_phase(dev)
+    torch.cuda.empty_cache()
+    emit({"phase": "train_done",
+          "seconds": round(time.perf_counter() - t0, 3),
+          "full_width_tokens_per_s": {k: train[k]["tokens_per_s"]
+                                      for k in ("float32", "bfloat16")}})
 
     t0 = time.perf_counter()
     times = timings(dev)

@@ -3,8 +3,8 @@
 MiniCPM's training tricks are reflected here: scaled embeddings
 (``embed_scale=12``), depth-scaled residual branches
 (``1.4 / sqrt(n_layers)``), and logits scaled by ``1/(d_model/256)``.
-The reference selects its WSD learning-rate schedule in training, which
-this package does not have yet (ROADMAP P14b).
+The WSD learning-rate schedule is selected in train/optimizer.py when
+``schedule="wsd"`` (launch/train.py picks it for this arch).
 """
 
 import math

@@ -13,7 +13,9 @@ the reference package), so both packages can be fed the very same graph:
 ``EvalConfig.from_dict`` carries a config dict across the same way, and
 :func:`lm_params_from_arrays` the parameters of the LLM substrate
 (``repro_torch.models``), whose random initialisation differs from the
-reference's ``jax.random`` streams.
+reference's ``jax.random`` streams; :func:`train_state_from_arrays`
+carries a whole training state (parameters and AdamW state) the same
+way.
 """
 
 from __future__ import annotations
@@ -27,7 +29,7 @@ from repro_torch.core.condense import CondensedGraph
 from repro_torch.core.simgraph import SimGraph
 
 __all__ = ["condensed_from_arrays", "graph_fields", "lm_params_from_arrays",
-           "simgraph_from_arrays"]
+           "simgraph_from_arrays", "train_state_from_arrays"]
 
 #: fields that are not arrays (copied as they are)
 _SCALARS = {"unbounded_latency": int, "_bound": int, "tag": str}
@@ -93,6 +95,10 @@ def lm_params_from_arrays(cfg, tree, device, dtype=None) -> dict:
     against :func:`repro_torch.models.transformer.model_specs` and any
     mismatch raises ``ValueError``.  Tensors go to ``device`` in ``dtype``
     (default: each spec's, float32)."""
+    return _carry_lm(cfg, tree, device, dtype, "params")
+
+
+def _carry_lm(cfg, tree, device, dtype, root: str) -> dict:
     import torch
 
     from repro_torch.models.params import is_spec
@@ -115,4 +121,30 @@ def lm_params_from_arrays(cfg, tree, device, dtype=None) -> dict:
                 f"{sorted(spec)}")
         return {k: carry(spec[k], arr[k], f"{path}/{k}") for k in spec}
 
-    return carry(model_specs(cfg), tree, "params")
+    return carry(model_specs(cfg), tree, root)
+
+
+def train_state_from_arrays(cfg, params_tree, opt_tree, device):
+    """``(params, opt_state)`` of this package's train step from the
+    reference's ``(params, {"m", "v", "step"})`` given as numpy arrays:
+    parameters as :func:`lm_params_from_arrays` carries them, both
+    moments float32 with the same key and shape checks, and the step a
+    scalar int32 tensor.  Any mismatch raises ``ValueError``."""
+    import torch
+
+    if not isinstance(opt_tree, dict) or set(opt_tree) != {"m", "v",
+                                                           "step"}:
+        keys = sorted(opt_tree) if isinstance(opt_tree, dict) else opt_tree
+        raise ValueError(f"{cfg.name}: the optimizer state should be a "
+                         f"dict of ['m', 'step', 'v'], got {keys!r}")
+    step = np.asarray(opt_tree["step"])
+    if step.shape != ():
+        raise ValueError(f"{cfg.name}: opt/step has shape {step.shape}, "
+                         f"expected ()")
+    params = lm_params_from_arrays(cfg, params_tree, device)
+    opt = {"m": _carry_lm(cfg, opt_tree["m"], device, torch.float32,
+                          "opt/m"),
+           "v": _carry_lm(cfg, opt_tree["v"], device, torch.float32,
+                          "opt/v"),
+           "step": torch.tensor(step, dtype=torch.int32, device=device)}
+    return params, opt

@@ -6,11 +6,12 @@ Model code annotates activations with *logical* axis names via
 :class:`ShardingCtx` (mesh + rules); without one, every annotation is a
 no-op, so the same model code runs on one device.
 
-This package serves the models on ONE device.  :meth:`ShardingCtx.spec`
-resolves logical names exactly as the reference does (the rules table,
-and each mesh axis consumed at most once per spec), and :func:`constrain`
-is the identity with no context or on a one-device mesh; placing a model
-over several devices is ROADMAP P14b and raises.
+This package serves and trains the models on ONE device.
+:meth:`ShardingCtx.spec` resolves logical names exactly as the reference
+does (the rules table, and each mesh axis consumed at most once per
+spec), and :func:`constrain` is the identity with no context or on a
+one-device mesh; placing a model over several devices is ROADMAP P14c
+and raises.
 
 Default rules (the reference's):
 
@@ -117,7 +118,7 @@ class use_ctx:
 def constrain(x, *logical: Optional[str]):
     """Annotate an activation with logical axes: the identity with no
     context or on a one-device mesh; a multi-device mesh raises
-    ``NotImplementedError`` (ROADMAP P14b)."""
+    ``NotImplementedError`` (ROADMAP P14c)."""
     ctx = get_ctx()
     if ctx is None:
         return x
@@ -127,5 +128,5 @@ def constrain(x, *logical: Optional[str]):
     if ctx.mesh.size > 1:
         raise NotImplementedError(
             "placing a model over several devices is not ported yet: "
-            "ROADMAP P14b")
+            "ROADMAP P14c")
     return x

@@ -23,6 +23,7 @@ from typing import Any, Dict, Optional, Tuple
 
 import numpy as np
 import torch
+from torch.utils.checkpoint import checkpoint
 
 from repro_torch.configs.base import ArchConfig
 from repro_torch.models import params as pm
@@ -188,19 +189,31 @@ def block_apply(cfg: ArchConfig, p: Dict, x: torch.Tensor,
 def _layer_loop(cfg: ArchConfig, stacked_params: Dict, x: torch.Tensor,
                 positions: torch.Tensor, windows: np.ndarray,
                 cache: Optional[Dict], cache_index, dense_ffn: bool,
-                collect_cache: bool, cdt
+                remat: bool, collect_cache: bool, cdt
                 ) -> Tuple[torch.Tensor, Optional[Dict]]:
     """The reference's ``_scan_stack``: layer ``i`` reads slice ``i`` of
     every stacked tensor.  With a cache, each layer's new entries are
-    written into slice ``i`` of it (K/V already are, by the attention)."""
+    written into slice ``i`` of it (K/V already are, by the attention).
+
+    With ``remat`` and grad mode on (training), each layer runs under
+    ``torch.utils.checkpoint``: only its input is kept for the backward
+    pass, which runs the layer again (the reference's ``jax.checkpoint``
+    with ``nothing_saveable``).  A layer draws no random numbers, so the
+    RNG state is not stashed."""
     n = pm.tree_leaves(stacked_params)[0].shape[0]
+    remat = remat and cache is None and torch.is_grad_enabled()
     per_layer = []
     for i in range(n):
         p_i = pm.tree_map(lambda a: a[i], stacked_params)
         c_i = (pm.tree_map(lambda a: a[i], cache)
                if cache is not None else None)
-        x, nc = block_apply(cfg, p_i, x, positions, int(windows[i]), c_i,
-                            cache_index, dense_ffn, cdt)
+        args = (cfg, p_i, x, positions, int(windows[i]), c_i, cache_index,
+                dense_ffn, cdt)
+        if remat:
+            x, nc = checkpoint(block_apply, *args, use_reentrant=False,
+                               preserve_rng_state=False)
+        else:
+            x, nc = block_apply(*args)
         if cache is not None:
             for k, v in nc.items():
                 if v.data_ptr() != c_i[k].data_ptr():
@@ -229,9 +242,11 @@ def forward(cfg: ArchConfig, params: Dict, tokens: torch.Tensor,
     Prefill: ``cache=None``; returns (logits (B, S, vocab_padded),
     per-layer caches stacked (L, B, S, ...)).  Decode: tokens (B, 1),
     cache + cache_index given; the cache is updated in place and
-    returned.  ``remat`` and ``unroll`` are accepted for the reference's
-    signature and change nothing here (rematerialization belongs to
-    training, ROADMAP P14b).
+    returned.  ``remat`` recomputes each layer in the backward pass
+    instead of keeping its activations (see :func:`_layer_loop`); it
+    acts only in grad mode without a cache, so inference never pays for
+    it.  ``unroll`` is accepted for the reference's signature: the layer
+    loop is a Python loop already.
     """
     x = embed(params["embed"], cfg, tokens, cdt)
     if embeds is not None:
@@ -251,12 +266,12 @@ def forward(cfg: ArchConfig, params: Dict, tokens: torch.Tensor,
         x, nc = _layer_loop(cfg, params["dense_layers"], x, positions,
                             _layer_windows(cfg, k_dense),
                             cache.get("dense_layers") if cache else None,
-                            cache_index, True, return_cache, cdt)
+                            cache_index, True, remat, return_cache, cdt)
         new_cache["dense_layers"] = nc
     x, nc = _layer_loop(cfg, params["layers"], x, positions,
                         _layer_windows(cfg, cfg.n_layers - k_dense, k_dense),
                         cache.get("layers") if cache else None,
-                        cache_index, False, return_cache, cdt)
+                        cache_index, False, remat, return_cache, cdt)
     new_cache["layers"] = nc
 
     x = rms_norm(x, params["final_norm"]["w"], cfg.norm_eps)

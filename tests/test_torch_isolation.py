@@ -35,7 +35,9 @@ def test_importing_every_module_loads_no_jax_and_no_reference():
     mods = _modules()
     for m in ("kernels.fifo_eval.condensed", "core.backends.mesh",
               "launch.mesh", "launch.decode_demo", "models.transformer",
-              "models.moe", "models.ssm", "configs.base", "train.steps"):
+              "models.moe", "models.ssm", "configs.base", "train.steps",
+              "train.optimizer", "train.checkpoint", "train.data",
+              "launch.train"):
         assert "repro_torch." + m in mods, m
     code = (
         "import importlib, sys\n"

@@ -184,7 +184,7 @@ def test_sharding_specs_equal_the_reference():
     with use_ctx(tmesh):
         assert constrain(x, "batch", "embed") is x
     with use_ctx(Mesh(("data", "model"), (2, 1), (CPU, CPU))):
-        with pytest.raises(NotImplementedError, match="ROADMAP P14b"):
+        with pytest.raises(NotImplementedError, match="ROADMAP P14c"):
             constrain(x, "batch", "embed")
     assert constrain(x, "batch", "embed") is x
 
