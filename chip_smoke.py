@@ -162,7 +162,26 @@ Phases, each printing JSON lines (any failure raises and exits nonzero):
    operations a token over 67 or 989 TFLOP/s), and one more step of
    each under ``torch.profiler`` (device idle share, largest kernels);
 
-Phases 11, 12 and 13 run after phase 7, before 8.  Then the ``{"kernels":
+14. placement over several devices and the dry-run
+   (``repro_torch.launch.dryrun``): (a) the dry-run's cells at full
+   width on fake process groups of 256 and 512 ranks — all four shapes
+   of qwen2-1.5b on both meshes (6 ok, 2 skipped), qwen3-moe-30b-a3b
+   ``train_4k`` and mamba2-1.3b ``long_500k`` on 16x16 — each ``ok`` or
+   ``skipped``, with its memory, flops, collectives, roofline terms and
+   seconds; (b) the dry-run on a 1x1 mesh of phase 13's step and phase
+   12's prefill (qwen2-1.5b, 4 x 1024 tokens, float32 and bf16) beside
+   the ``max_memory_allocated`` those phases printed, and its flops
+   beside 8 N tokens (train, remat) and 2 N tokens (prefill); (c) one
+   ``make_train_step`` of qwen2-7b as rank 0 of a (data 2, model 4) fake
+   group, its shards real tensors on the card and one 4096-token
+   sequence per data rank: every local parameter and moment has the
+   shape and layout the dry-run gives rank 0 and lies on the card;
+   ``max_memory_allocated`` beside the dry-run's total for that cell,
+   and the step's seconds (local compute, collectives faked).  The
+   dry-run cells run in spawned processes while (c) runs; no process
+   group outlives the phase;
+
+Phases 11, 12, 13 and 14 run after phase 7, before 8.  Then the ``{"kernels":
 [...]}`` line (with each kernel's launches in phases 4, 5, 6, 10 and
 11), the ``nvidia-smi`` line, and last
 ``{"ok": true, "device": {...}}``.  Without a CUDA device, or outside a
@@ -272,6 +291,26 @@ TRAIN_STEPS = 3
 #: without remat, 4 x 1024 tokens keep ~40 GB of activations beside the
 #: 18.5 GB state and two gradient sets (~75 of the card's 80 GB)
 TRAIN_REMAT_ROWS = 2
+#: phase 14 (a): the dry-run's cells at full width, longest first
+PLACE_CELLS = (("qwen3-moe-30b-a3b", "train_4k", False),
+               ("qwen2-1.5b", "prefill_32k", False),
+               ("qwen2-1.5b", "prefill_32k", True),
+               ("qwen2-1.5b", "train_4k", False),
+               ("qwen2-1.5b", "train_4k", True),
+               ("qwen2-1.5b", "decode_32k", False),
+               ("qwen2-1.5b", "decode_32k", True),
+               ("mamba2-1.3b", "long_500k", False),
+               ("qwen2-1.5b", "long_500k", False),
+               ("qwen2-1.5b", "long_500k", True))
+#: phase 14 (c): qwen2-7b (7.6 B parameters: 16 B each of float32 weights
+#: and AdamW state do not fit one card) on a (data 2, model 4) mesh of
+#: fake ranks, one PLACE_SEQ-token sequence per data rank
+PLACE_ARCH = "qwen2-7b"
+PLACE_MESH = (2, 4)
+PLACE_SEQ = 4096
+#: phase 14: the dry-run cells' processes (the card's host has 8 cores;
+#: one is left to part (c))
+PLACE_JOBS = 7
 #: phase 10: the serve CLI's scripted transcript
 SERVE_SCRIPT = (
     {"op": "hello", "proto": 2},
@@ -2368,6 +2407,176 @@ def main(argv=None) -> int:
             _out_file = None
 
 
+# ------------------------------------- placement and dry-run (phase 14)
+def place_step(dev) -> dict:
+    """Phase 14 (c): one train step of PLACE_ARCH as rank 0 of a fake
+    group over PLACE_MESH, its shards real tensors on the card."""
+    import numpy as np
+    import torch
+    from repro_torch.configs import get_arch
+    from repro_torch.launch.dryrun import fake_world
+    from repro_torch.launch.mesh import make_production_mesh
+    from repro_torch.models import params as pm
+    from repro_torch.models.sharding import use_ctx
+    from repro_torch.models.transformer import model_specs
+    from repro_torch.train.optimizer import OptConfig, init_opt_state
+    from repro_torch.train.steps import make_train_step
+
+    cfg = get_arch(PLACE_ARCH)
+    specs = model_specs(cfg)
+    world = PLACE_MESH[0] * PLACE_MESH[1]
+    rng = np.random.default_rng(7)
+    toks = rng.integers(0, cfg.vocab, size=(PLACE_MESH[0], PLACE_SEQ + 1))
+    with fake_world(world):
+        mesh = make_production_mesh(shape=PLACE_MESH)
+        with use_ctx(mesh) as ctx:
+            shs = pm.shardings(specs, ctx)
+            # each leaf drawn whole on the card, cut to rank 0's shard
+            gen = torch.Generator(device=dev).manual_seed(0)
+            params = {}
+            for key in sorted(specs):
+                params[key] = pm.place(
+                    pm.materialize({key: specs[key]}, gen)[key], shs[key])
+            opt = init_opt_state(params)
+            torch.cuda.synchronize(dev)
+            torch.cuda.empty_cache()
+            torch.cuda.reset_peak_memory_stats(dev)
+            base = torch.cuda.memory_allocated(dev)
+            tok_sh = ctx.sharding(("batch", "seq"))
+            batch = {k: pm.place({"t": torch.as_tensor(v, device=dev)},
+                                 {"t": tok_sh})["t"]
+                     for k, v in (("tokens", toks[:, :-1]),
+                                  ("labels", toks[:, 1:]))}
+            step = make_train_step(cfg, OptConfig())
+            t0 = time.perf_counter()
+            params, opt, metrics = step(params, opt, batch)
+            torch.cuda.synchronize(dev)
+            step_s = time.perf_counter() - t0
+            peak = torch.cuda.max_memory_allocated(dev)
+            want = pm.shape_structs(specs, ctx)
+            bad = []
+            for tree in (params, opt["m"], opt["v"]):
+                for t, w in zip(pm.tree_leaves(tree), pm.tree_leaves(want)):
+                    local = t.to_local()
+                    if (local.shape != w.to_local().shape
+                            or t.placements != w.placements
+                            or t.shape != w.shape
+                            or local.device.type != dev.type):
+                        bad.append((tuple(t.shape), tuple(local.shape),
+                                    str(local.device)))
+            n_local = sum(t.to_local().numel()
+                          for t in pm.tree_leaves(params))
+            state = base
+            del params, opt, metrics, batch, want
+    torch.cuda.empty_cache()
+    if bad:
+        raise AssertionError(f"phase 14 (c): {len(bad)} local shards differ "
+                             f"from the dry-run's rank 0: {bad[:4]}")
+    return {"arch": PLACE_ARCH, "mesh": list(PLACE_MESH),
+            "tokens_per_data_rank": PLACE_SEQ,
+            "n_params": pm.n_params(specs), "rank0_params": n_local,
+            "state_bytes": state, "max_memory_allocated": peak,
+            "step_s": step_s, "timing": "local compute, collectives faked",
+            "shards_match_dry_run": True,
+            "process_group_left": torch.distributed.is_initialized()}
+
+
+def placement_phase(dev, llm: dict, train: dict) -> dict:
+    """Phase 14: placement over several devices and the dry-run (see the
+    docstring)."""
+    import threading
+    import torch
+    from repro_torch.configs import get_arch
+    from repro_torch.configs.base import ShapeConfig
+    from repro_torch.launch import dryrun
+
+    cells = [dict(arch_name=a, shape_name=s, multi_pod=mp, device="cuda")
+             for a, s, mp in PLACE_CELLS]
+    local = [dict(arch_name=LLM_FULL_ARCH,
+                  shape_name=ShapeConfig(f"{kind}_{TRAIN_BATCH}x{TRAIN_SEQ}",
+                                         TRAIN_SEQ, TRAIN_BATCH, kind),
+                  mesh_shape=(1, 1), device="cuda", cdt=cdt)
+             for kind in ("train", "prefill")
+             for cdt in (torch.float32, torch.bfloat16)]
+    seven = dict(arch_name=PLACE_ARCH,
+                 shape_name=ShapeConfig(f"train_{PLACE_MESH[0]}x{PLACE_SEQ}",
+                                        PLACE_SEQ, PLACE_MESH[0], "train"),
+                 mesh_shape=PLACE_MESH, device="cuda")
+    jobs = cells[:5] + [seven] + cells[5:] + local      # longest first
+    recs, pool_error = [], []
+
+    def run_pool():
+        try:
+            recs.extend(dryrun.run_cells(jobs, PLACE_JOBS))
+        except BaseException as e:     # raised again below, in this phase
+            pool_error.append(e)
+    t0 = time.perf_counter()
+    pool = threading.Thread(target=run_pool)
+    pool.start()
+    try:
+        step = place_step(dev)
+    finally:
+        step_wall = time.perf_counter() - t0
+        pool.join()
+        for r in recs:          # every record, also when (c) failed
+            if r["status"] == "error":
+                emit({"phase": "placement", "part": "error", **r})
+    cells_wall = time.perf_counter() - t0
+    if pool_error:
+        raise pool_error[0]
+    rec_of = dict(zip(map(id, jobs), recs))
+    failed = [r for r in recs if r["status"] == "error"]
+    if failed:
+        raise AssertionError(f"phase 14: {len(failed)} dry-run cells "
+                             f"failed: {[(r['arch'], r['shape'], r['mesh']) for r in failed]}")
+
+    def brief(r):
+        return {k: r.get(k) for k in (
+            "arch", "shape", "mesh", "kind", "status", "chips", "memory",
+            "hlo_flops", "compiled_flops_per_device", "hlo_bytes",
+            "collectives", "collective_bytes_per_device", "roofline",
+            "model_flops", "useful_compute_ratio", "lower_s", "reason")}
+    for c in cells:
+        emit({"phase": "placement", "part": "a", **brief(rec_of[id(c)])})
+    statuses = [rec_of[id(c)]["status"] for c in cells]
+    if statuses.count("ok") != 8 or statuses.count("skipped") != 2:
+        raise AssertionError(f"phase 14 (a): statuses {statuses}")
+
+    n = get_arch(LLM_FULL_ARCH).n_params()
+    tokens = TRAIN_BATCH * TRAIN_SEQ
+    ratios = {}
+    for c in local:
+        r = rec_of[id(c)]
+        name = str(c["cdt"]).replace("torch.", "")
+        kind = r["kind"]
+        measured = (train if kind == "train" else llm)[name][
+            "max_memory_allocated"]
+        per = 8 if kind == "train" else 2
+        row = {"phase": "placement", "part": "b", "arch": LLM_FULL_ARCH,
+               "kind": kind, "cdt": name, "batch": TRAIN_BATCH,
+               "seq": TRAIN_SEQ, "memory": r["memory"],
+               "measured_max_memory_allocated": measured,
+               "predicted_over_measured": r["memory"]["total"] / measured,
+               "hlo_flops": r["hlo_flops"], f"{per}_n_tokens": per * n * tokens,
+               "flops_over_n_tokens_rule": r["hlo_flops"] / (per * n * tokens),
+               "lower_s": r["lower_s"]}
+        emit(row)
+        ratios[f"{kind}_{name}"] = row["predicted_over_measured"]
+
+    pred = rec_of[id(seven)]
+    emit({"phase": "placement", "part": "c", **step,
+          "dry_run_memory": pred["memory"],
+          "measured_over_predicted": step["max_memory_allocated"]
+          / pred["memory"]["total"],
+          "dry_run_lower_s": pred["lower_s"]})
+    if step["process_group_left"] or torch.distributed.is_initialized():
+        raise AssertionError("phase 14: a process group outlived its part")
+    return {"cells_wall_s": cells_wall, "step_wall_s": step_wall,
+            "memory_ratios": ratios,
+            "cell_seconds": {f"{r['arch']}|{r['shape']}|{r['mesh']}":
+                             r.get("lower_s") for r in recs}}
+
+
 def run() -> int:
     import torch
     t_start = time.perf_counter()
@@ -2430,7 +2639,7 @@ def run() -> int:
     fuzz_phase()
     emit({"phase": "fuzz_done", "seconds": round(time.perf_counter() - t0,
                                                  3)})
-    # phases 11, 12 and 13 run here, before the timings, the profiler and
+    # phases 11-14 run here, before the timings, the profiler and
     # the service: run after them, the host-bound full-width decode loop
     # took twice as long
     t0 = time.perf_counter()
@@ -2450,6 +2659,12 @@ def run() -> int:
           "seconds": round(time.perf_counter() - t0, 3),
           "full_width_tokens_per_s": {k: train[k]["tokens_per_s"]
                                       for k in ("float32", "bfloat16")}})
+
+    t0 = time.perf_counter()
+    placement = placement_phase(dev, llm, train)
+    torch.cuda.empty_cache()
+    emit({"phase": "placement_done",
+          "seconds": round(time.perf_counter() - t0, 3), **placement})
 
     t0 = time.perf_counter()
     times = timings(dev)

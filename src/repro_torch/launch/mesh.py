@@ -28,6 +28,14 @@ Which devices a mesh uses:
   * 4`` runs a 4-shard mesh on one card.
 
 Building a mesh touches no CUDA state beyond the device count.
+
+The production meshes (:func:`make_production_mesh`,
+:func:`make_local_mesh`) place a MODEL over devices: ``("data",
+"model")`` or ``("pod", "data", "model")``, one rank a device.  Such a
+mesh yields its ``torch.distributed`` ``DeviceMesh``
+(:meth:`Mesh.device_mesh`), built on first use over the process group
+that is up, whose world size must equal the mesh's size; the row
+sharding meshes above never build one.
 """
 
 from __future__ import annotations
@@ -38,7 +46,8 @@ from typing import Optional, Sequence, Tuple
 
 __all__ = [
     "Mesh", "device_grid", "ensure_host_platform_devices",
-    "make_campaign_mesh", "make_eval_mesh",
+    "make_campaign_mesh", "make_eval_mesh", "make_local_mesh",
+    "make_production_mesh",
 ]
 
 
@@ -63,6 +72,39 @@ class Mesh:
     def size(self) -> int:
         """The shard count: every axis jointly."""
         return len(self.devices)
+
+    def device_mesh(self, groups: Optional[Sequence[Sequence[str]]] = None):
+        """This mesh as a ``torch.distributed`` ``DeviceMesh``: ranks
+        ``0..size-1`` in row-major order, ``mesh_dim_names`` the axis
+        names, on the device type of ``devices``.  ``groups`` (runs of
+        adjacent axes, in order, covering every axis) merges each run
+        into one mesh dim named ``"a.b"``: the same ranks, fewer dims.
+        Needs a process group whose world size is ``size``; built once
+        per process group and kept on the mesh."""
+        import torch
+        import torch.distributed as dist
+        from torch.distributed.device_mesh import DeviceMesh
+        if not dist.is_initialized() or dist.get_world_size() != self.size:
+            have = dist.get_world_size() if dist.is_initialized() else None
+            raise RuntimeError(
+                f"a DeviceMesh of shape {self.shape} needs a process group "
+                f"of world size {self.size} (the group that is up has "
+                f"{have})")
+        groups = tuple(tuple(g) for g in (
+            groups if groups is not None else [(a,) for a in self.axis_names]))
+        if sum(groups, ()) != tuple(self.axis_names):
+            raise ValueError(f"mesh axis groups {groups} do not cover "
+                             f"{self.axis_names} in order")
+        world = dist.group.WORLD
+        cache = self.__dict__.setdefault("_device_meshes", {})
+        if groups not in cache or cache[groups][0] is not world:
+            size = dict(zip(self.axis_names, self.shape))
+            shape = [math.prod(size[a] for a in g) for g in groups]
+            cache[groups] = (world, DeviceMesh(
+                self.devices[0].type,
+                torch.arange(self.size).reshape(shape),
+                mesh_dim_names=tuple(".".join(g) for g in groups)))
+        return cache[groups][1]
 
 
 def ensure_host_platform_devices(n: int) -> bool:
@@ -169,3 +211,72 @@ def make_campaign_mesh(design_shards: Optional[int] = None,
     else:
         shape = (int(design_shards), int(eval_shards))
     return Mesh(("design", "eval"), tuple(shape), _take(pool, shape, what))
+
+
+def _rank_devices(device) -> Tuple[int, Optional[list]]:
+    """``(device count, devices or None for the CPU)`` for a production
+    mesh: one rank a device when a process group is up (rank ``r``
+    computes on ``cuda:r % cards``), else every card, or one CPU."""
+    import torch
+    import torch.distributed as dist
+    cpu = device is not None and torch.device(device).type == "cpu"
+    if dist.is_initialized():
+        n = dist.get_world_size()
+        if cpu:
+            return n, [torch.device("cpu")] * n
+        if not torch.cuda.is_available():
+            raise RuntimeError("no CUDA device is available; pass "
+                               "device='cpu' for a CPU mesh")
+        cards = torch.cuda.device_count()
+        return n, [torch.device("cuda", r % cards) for r in range(n)]
+    if cpu:
+        return 1, None
+    pool = _pool(device, None)
+    return len(pool), pool
+
+
+def make_production_mesh(*, multi_pod: bool = False,
+                         shape: Optional[Sequence[int]] = None,
+                         device=None) -> Mesh:
+    """Accelerator-pod mesh, shape derived from the device count: the
+    world size of the process group when one is up, else
+    ``torch.cuda.device_count()`` (one CPU for ``device="cpu"``, which
+    repeats as often as ``shape`` asks).
+
+    Single pod: a near-square ``("data", "model")`` grid over every
+    device (256 ranks -> 16x16).  ``multi_pod`` splits the fleet into 2
+    pods first: ``("pod", "data", "model")`` with a near-square grid per
+    pod (512 ranks -> 2x16x16).  Pass ``shape`` to pin an explicit
+    topology; it is validated against the available device count and
+    fails with a clear error.
+    """
+    n, pool = _rank_devices(device)
+    what = "make_production_mesh"
+    if shape is not None:
+        axes = ("pod", "data", "model") if len(shape) == 3 \
+            else ("data", "model")
+        if len(shape) != len(axes):
+            raise ValueError(
+                f"make_production_mesh: shape must be 2-D (data, model) "
+                f"or 3-D (pod, data, model), got {tuple(shape)}")
+        if pool is not None:
+            _require(n, shape, what)
+    elif multi_pod:
+        if n < 2 or n % 2:
+            raise ValueError(
+                f"make_production_mesh(multi_pod=True) needs an even "
+                f"device count >= 2, got {n}")
+        shape = (2,) + device_grid(n // 2)
+        axes = ("pod", "data", "model")
+    else:
+        shape = device_grid(n)
+        axes = ("data", "model")
+    shape = tuple(int(a) for a in shape)
+    return Mesh(axes, shape, _take(pool, shape, what))
+
+
+def make_local_mesh(device=None) -> Mesh:
+    """1x1 ``("data", "model")`` mesh over the first local device (the
+    first card, or the CPU for ``device="cpu"``)."""
+    return Mesh(("data", "model"), (1, 1),
+                _take(_pool(device, None), (1, 1), "make_local_mesh"))

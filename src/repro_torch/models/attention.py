@@ -22,7 +22,7 @@ import torch
 from repro_torch.configs.base import ArchConfig
 from repro_torch.models.layers import apply_rope, rope_angles, scalar
 from repro_torch.models.params import ParamSpec
-from repro_torch.models.sharding import constrain
+from repro_torch.models.sharding import batch_local, constrain, reshape
 
 NEG_INF = -1e9
 Q_CHUNK = 512
@@ -62,6 +62,7 @@ def _scale(d: int, dtype) -> float:
     return scalar(float(s), dtype)
 
 
+@batch_local
 def _sdpa(q, k, v, q_pos, k_pos, window: int) -> torch.Tensor:
     """q (B,Q,H,D); k/v (B,S,KV,D); GQA grouped."""
     B, Q, H, D = q.shape
@@ -112,9 +113,9 @@ def gqa_attention(
         q = q + p["bq"].to(cdt)
         k = k + p["bk"].to(cdt)
         v = v + p["bv"].to(cdt)
-    q = q.reshape(B, S, h, hd)
-    k = k.reshape(B, S, kv, hd)
-    v = v.reshape(B, S, kv, hd)
+    q = reshape(q, B, S, h, hd)
+    k = reshape(k, B, S, kv, hd)
+    v = reshape(v, B, S, kv, hd)
 
     cos, sin = rope_angles(positions, hd, cfg.rope_theta)
     q = apply_rope(q, cos, sin)
@@ -131,7 +132,7 @@ def gqa_attention(
         k_pos = torch.where(k_pos <= i, k_pos,
                             torch.full_like(k_pos, 1 << 30))
         qo = _sdpa(q, ck.to(cdt), cv.to(cdt), positions, k_pos, window)
-        out = qo.reshape(B, S, h * hd) @ p["wo"].to(cdt)
+        out = reshape(qo, B, S, h * hd) @ p["wo"].to(cdt)
         return out, {"k": ck, "v": cv}
 
     k = constrain(k, "batch", "kv_seq", "kv_heads", None)
@@ -141,5 +142,5 @@ def gqa_attention(
         _sdpa(q[:, j * (S // n):(j + 1) * (S // n)], k, v,
               positions[j * (S // n):(j + 1) * (S // n)], positions, window)
         for j in range(n)], dim=1)
-    out = qo.reshape(B, S, h * hd) @ p["wo"].to(cdt)
+    out = reshape(qo, B, S, h * hd) @ p["wo"].to(cdt)
     return out, {"k": k, "v": v}

@@ -14,7 +14,7 @@ import torch.nn.functional as F
 
 from repro_torch.configs.base import ArchConfig
 from repro_torch.models.params import ParamSpec
-from repro_torch.models.sharding import constrain
+from repro_torch.models.sharding import constrain, take_rows
 
 
 def scalar(value: float, dtype) -> float:
@@ -92,7 +92,7 @@ def embed_specs(cfg: ArchConfig) -> Dict[str, ParamSpec]:
 def embed(p: Dict, cfg: ArchConfig, tokens: torch.Tensor,
           cdt=torch.bfloat16) -> torch.Tensor:
     # gather, then cast: the same values as casting the table first
-    e = p["tok"][tokens.long()].to(cdt)
+    e = take_rows(p["tok"], tokens.long()).to(cdt)
     return e * scalar(cfg.embed_scale, cdt)
 
 

@@ -19,7 +19,7 @@ from repro_torch.models.attention import (NEG_INF, _mask, _scale,
                                           query_chunks)
 from repro_torch.models.layers import rope_angles
 from repro_torch.models.params import ParamSpec
-from repro_torch.models.sharding import constrain
+from repro_torch.models.sharding import batch_local, constrain, reshape
 
 
 def mla_specs(cfg: ArchConfig) -> Dict[str, ParamSpec]:
@@ -48,6 +48,7 @@ def _apply_rope_1h(x, cos, sin):
     return torch.cat([x1 * c - x2 * s, x2 * c + x1 * s], dim=-1)
 
 
+@batch_local
 def _mla_scores_out(q_lat, q_rope, c_kv, k_rope, q_pos, k_pos, scale):
     """q_lat (B,Q,H,C); q_rope (B,Q,H,R); c_kv (B,S,C); k_rope (B,S,R)."""
     s_lat = torch.einsum("bqhc,bsc->bhqs", q_lat, c_kv)
@@ -111,5 +112,5 @@ def mla_attention(
 
     # un-absorb the value projection, then the output projection
     o = torch.einsum("bqhl,lhv->bqhv", lat, p["wuv"].to(cdt))
-    out = o.reshape(B, S, h * m.v_head_dim) @ p["wo"].to(cdt)
+    out = reshape(o, B, S, h * m.v_head_dim) @ p["wo"].to(cdt)
     return out, new_cache

@@ -23,6 +23,7 @@ import torch.nn.functional as F
 
 from repro_torch.configs.base import ArchConfig
 from repro_torch.models.params import ParamSpec
+from repro_torch.models.sharding import batch_local
 
 
 def ssd_specs(cfg: ArchConfig) -> Dict[str, ParamSpec]:
@@ -55,6 +56,7 @@ def _split(cfg: ArchConfig, zxbcdt: torch.Tensor):
     return z, xbc, dt, d_in, heads
 
 
+@batch_local
 def _ssd_chunked(xh, a, b, c, chunk: int):
     """xh (B,S,H,P) pre-scaled by dt; a (B,S,H) decay in (0,1);
     b/c (B,S,N).  Returns y (B,S,H,P) and final state (B,H,P,N)."""

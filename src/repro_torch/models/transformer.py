@@ -35,7 +35,8 @@ from repro_torch.models.layers import (embed, embed_specs, mlp, mlp_specs,
 from repro_torch.models.mla import mla_attention, mla_specs
 from repro_torch.models.moe import moe_ffn, moe_specs
 from repro_torch.models.params import ParamSpec
-from repro_torch.models.sharding import constrain
+from repro_torch.models.sharding import (constrain, data_ptr, like,
+                                         sharded_region)
 from repro_torch.models.ssm import ssd_block, ssd_specs
 
 
@@ -214,10 +215,15 @@ def _layer_loop(cfg: ArchConfig, stacked_params: Dict, x: torch.Tensor,
                                preserve_rng_state=False)
         else:
             x, nc = block_apply(*args)
+        # the residual stream stays laid out as the embedding's output:
+        # a partial sum (a row-parallel product's) is reduced here, not
+        # carried into the next layer and, in the backward pass, gathered
+        # whole
+        x = constrain(x, "batch", "seq", "embed")
         if cache is not None:
             for k, v in nc.items():
-                if v.data_ptr() != c_i[k].data_ptr():
-                    c_i[k].copy_(v)
+                if data_ptr(v) != data_ptr(c_i[k]):
+                    c_i[k].copy_(like(v, c_i[k]))
         elif collect_cache:
             per_layer.append(nc)
     if cache is not None:
@@ -248,6 +254,13 @@ def forward(cfg: ArchConfig, params: Dict, tokens: torch.Tensor,
     it.  ``unroll`` is accepted for the reference's signature: the layer
     loop is a Python loop already.
     """
+    with sharded_region():
+        return _forward(cfg, params, tokens, embeds, cache, cache_index,
+                        positions, remat, return_cache, cdt)
+
+
+def _forward(cfg, params, tokens, embeds, cache, cache_index, positions,
+             remat, return_cache, cdt):
     x = embed(params["embed"], cfg, tokens, cdt)
     if embeds is not None:
         x = torch.cat([embeds.to(cdt), x], dim=1)

@@ -12,8 +12,9 @@ sorted-key order and each manifest entry names its leaf as
 a checkpoint written by either package restores into the other.  numpy
 has no bfloat16: such a leaf is stored as float32 (exactly), its
 manifest entry says ``bfloat16``, and :func:`restore` casts it back.
-Restoring onto a sharded layout (the reference's ``shardings=``) is
-ROADMAP P14c.
+:func:`restore` with ``shardings=`` places each leaf onto a sharded
+layout, each rank keeping only its own shard (the reference's
+elastic-rescale path).
 """
 
 from __future__ import annotations
@@ -26,6 +27,8 @@ from typing import Callable, List, Optional
 
 import numpy as np
 import torch
+
+from repro_torch.models import params as pm
 
 
 def _keystr(path: tuple) -> str:
@@ -122,11 +125,14 @@ def restore(ckpt_dir: str, step: int, target_tree, shardings=None,
     """Restore into the structure of ``target_tree``: each leaf becomes a
     tensor on ``device`` (default: the target leaf's device, the CPU for
     a leaf that is not a tensor).  A leaf the checkpoint lacks raises
-    ``KeyError``."""
-    if shardings is not None:
-        raise NotImplementedError(
-            "restoring onto a sharded layout (shardings=) is not ported "
-            "yet: ROADMAP P14c")
+    ``KeyError``.
+
+    ``shardings`` (a matching tree of
+    :class:`~repro_torch.models.sharding.Sharding`, e.g.
+    :func:`repro_torch.models.params.shardings`) places each leaf as a
+    DTensor laid out by its sharding: every rank cuts its own shard from
+    the ``.npy`` and moves only that to ``device`` (default: the device
+    type of the sharding's mesh), so nothing is communicated."""
     d = os.path.join(ckpt_dir, f"step_{step:08d}")
     with open(os.path.join(d, "manifest.json")) as f:
         manifest = json.load(f)
@@ -139,10 +145,21 @@ def restore(ckpt_dir: str, step: int, target_tree, shardings=None,
         t = torch.from_numpy(np.load(os.path.join(d, entry["file"])))
         if entry["dtype"] == "bfloat16":
             t = t.to(torch.bfloat16)
-        dev = device if device is not None else (
-            leaf.device if isinstance(leaf, torch.Tensor) else "cpu")
-        return t.to(dev)
+        if shardings is None:
+            dev = device if device is not None else (
+                leaf.device if isinstance(leaf, torch.Tensor) else "cpu")
+            return t.to(dev)
+        sh = _at(shardings, path)
+        dev = device if device is not None else sh.mesh.device_type
+        local = pm.local_shard(t, sh).to(dev).contiguous()
+        return pm.place_local(local, sh, t.shape)
     return _map_with_path(load, target_tree)
+
+
+def _at(tree, path: tuple):
+    for k in path:
+        tree = tree[k]
+    return tree
 
 
 class AsyncCheckpointer:

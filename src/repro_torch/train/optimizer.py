@@ -9,7 +9,9 @@ the parameters' device, so a step never waits for the card.
 
 :func:`adamw_update` updates the parameters and both moments IN PLACE
 and returns those same trees: the caller holds the returned trees next,
-as the reference's train step donates its state.
+as the reference's train step donates its state.  On DTensor leaves a
+gradient is first laid out as its parameter is (the reference's jit
+out-shardings), since an in-place update keeps its target's layout.
 """
 
 from __future__ import annotations
@@ -21,6 +23,7 @@ from typing import Any, Dict, Tuple
 import torch
 
 from repro_torch.models import params as pm
+from repro_torch.models.sharding import like, sharded_region
 
 
 @dataclasses.dataclass(frozen=True)
@@ -63,12 +66,14 @@ def init_opt_state(params) -> Dict[str, Any]:
     dev = pm.tree_leaves(params)[0].device
 
     def zeros(p):
-        return torch.zeros(p.shape, dtype=torch.float32, device=p.device)
+        return torch.zeros_like(p, dtype=torch.float32)
     return {"m": pm.tree_map(zeros, params), "v": pm.tree_map(zeros, params),
             "step": torch.zeros((), dtype=torch.int32, device=dev)}
 
 
 def _global_norm(tree) -> torch.Tensor:
+    """The float32 norm over every leaf (over DTensor leaves, one
+    replicated scalar)."""
     return torch.sqrt(sum(torch.sum(torch.square(t.float()))
                           for t in pm.tree_leaves(tree)))
 
@@ -86,6 +91,12 @@ def adamw_update(cfg: OptConfig, grads, state, params
         raise ValueError(f"adamw_update: {len(flat_p)} parameters, "
                          f"{len(flat_g)} gradients, {len(flat_m)} and "
                          f"{len(flat_v)} moments")
+    with sharded_region():
+        return _adamw(cfg, flat_g, flat_m, flat_v, flat_p, grads, state,
+                      params)
+
+
+def _adamw(cfg, flat_g, flat_m, flat_v, flat_p, grads, state, params):
     step = state["step"] + 1
     gnorm = _global_norm(grads)
     scale = torch.clamp(cfg.clip_norm / (gnorm + 1e-9), max=1.0)
@@ -94,7 +105,7 @@ def adamw_update(cfg: OptConfig, grads, state, params
     c1 = 1.0 - b1 ** step.to(torch.float32)
     c2 = 1.0 - b2 ** step.to(torch.float32)
     for g, m, v, p in zip(flat_g, flat_m, flat_v, flat_p):
-        g = g.float() * scale
+        g = like(g, p).float() * scale
         m.mul_(b1).add_((1 - b1) * g)
         v.mul_(b2).add_((1 - b2) * g * g)
         delta = (m / c1) / (torch.sqrt(v / c2) + cfg.eps)

@@ -18,6 +18,8 @@ import torch.nn.functional as F
 
 from repro_torch.configs.base import ArchConfig
 from repro_torch.models import params as pm
+from repro_torch.models.sharding import (like, logsumexp, pick, reshape,
+                                         sharded_region, unshard)
 from repro_torch.models.transformer import forward, model_specs
 from repro_torch.train.optimizer import (OptConfig, adamw_update,
                                          init_opt_state)
@@ -45,8 +47,8 @@ def loss_fn(cfg: ArchConfig, params, batch: Dict[str, torch.Tensor],
     safe = torch.clamp(labels, min=0).long()
     # -log_softmax at the label, without a (B, S, vocab) log-probability
     # tensor: logsumexp minus the label's logit
-    lse = torch.logsumexp(logits, dim=-1)
-    nll = lse - torch.gather(logits, -1, safe[..., None])[..., 0]
+    lse = logsumexp(logits)
+    nll = lse - pick(logits, safe)
     denom = torch.clamp(mask.sum(), min=1)
     loss = torch.where(mask, nll, 0.0).sum() / denom
     # small z-loss stabilizer (standard at scale)
@@ -60,7 +62,7 @@ def _aux_and_grads(cfg: ArchConfig, params, batch, cdt, unroll):
     graph, logits included, is freed before this returns)."""
     live = pm.tree_map(lambda t: t.detach().requires_grad_(), params)
     leaves = pm.tree_leaves(live)
-    with torch.enable_grad():
+    with torch.enable_grad(), sharded_region():
         loss, aux = loss_fn(cfg, live, batch, cdt, unroll)
         flat = torch.autograd.grad(loss, leaves, allow_unused=True,
                                    materialize_grads=True)
@@ -79,17 +81,18 @@ def make_train_step(cfg: ArchConfig, opt: OptConfig, cdt=torch.bfloat16,
         if accum <= 1:
             aux, grads = _aux_and_grads(cfg, params, batch, cdt, unroll)
         else:
-            micro = {k: v.reshape(accum, v.shape[0] // accum, *v.shape[1:])
+            micro = {k: reshape(v, accum, v.shape[0] // accum,
+                                *v.shape[1:])
                      for k, v in batch.items()}
-            grads = pm.tree_map(lambda p: torch.zeros(
-                p.shape, dtype=torch.float32, device=p.device), params)
+            grads = pm.tree_map(lambda p: torch.zeros_like(
+                p, dtype=torch.float32), params)
             auxs = []
             for i in range(accum):
                 a, g = _aux_and_grads(
                     cfg, params, {k: v[i] for k, v in micro.items()}, cdt,
                     unroll)
                 for acc, gi in zip(pm.tree_leaves(grads), pm.tree_leaves(g)):
-                    acc.add_(gi)
+                    acc.add_(like(gi, acc))
                 auxs.append(a)
                 del g      # not alive beside the next microbatch's
             for acc in pm.tree_leaves(grads):
@@ -151,7 +154,9 @@ def make_decode_step(cfg: ArchConfig, cdt=torch.bfloat16):
         logits, new_cache = forward(cfg, params, tokens, cache=cache,
                                     cache_index=index, remat=False,
                                     return_cache=True, cdt=cdt)
-        next_tok = torch.argmax(logits[:, -1], dim=-1).to(torch.int32)
+        # (DTensor's argmax over a vocab-sharded dim fails at batch 1)
+        next_tok = torch.argmax(unshard(logits[:, -1], -1), dim=-1).to(
+            torch.int32)
         return next_tok, new_cache
     return decode_step
 

@@ -28,7 +28,11 @@ from repro.train.steps import init_train_state as ref_init_train_state
 
 from repro_torch.configs import get_arch
 from repro_torch.core.carry import train_state_from_arrays
+from repro_torch.launch.dryrun import fake_world
+from repro_torch.launch.mesh import Mesh, make_production_mesh
 from repro_torch.models import params as pm
+from repro_torch.models.sharding import use_ctx
+from repro_torch.models.transformer import model_specs
 from repro_torch.train import checkpoint as ck
 from repro_torch.train.steps import init_train_state
 
@@ -134,8 +138,24 @@ def test_save_is_idempotent_and_restore_places_leaves(tmp_path):
     assert ck.save(str(tmp_path), 2, _zeros_like(t)) == first
     r = ck.restore(str(tmp_path), 2, _zeros_like(t), device="cpu")
     _same_leaves(r, t)
-    with pytest.raises(NotImplementedError, match="ROADMAP P14c"):
-        ck.restore(str(tmp_path), 2, t, shardings=t)
+    # onto a sharded layout: rank 1 of 2 keeps the second half of the
+    # rows (a fake group's ranks run one at a time in this process)
+    mesh = Mesh(("data", "model"), (2, 1), (torch.device("cpu"),) * 2)
+    with fake_world(2, rank=1), use_ctx(mesh) as ctx:
+        shs = {"params": {"w": ctx.sharding(("embed", None)),
+                          "b": ctx.sharding((None,))},
+               "opt": {"m": {"w": ctx.sharding((None, "embed")),
+                             "b": ctx.sharding(("embed",))},
+                       "step": ctx.sharding(())}}
+        r = ck.restore(str(tmp_path), 2, t, shardings=shs)
+        assert torch.equal(r["params"]["w"].to_local(), t["params"]["w"][2:])
+        assert torch.equal(r["opt"]["m"]["w"].to_local(),
+                           t["opt"]["m"]["w"][:, 4:])
+        assert torch.equal(r["opt"]["m"]["b"].to_local(),
+                           t["opt"]["m"]["b"][4:])
+        assert torch.equal(r["params"]["b"].to_local(), t["params"]["b"])
+        assert r["opt"]["step"].to_local().item() == 7
+        assert r["params"]["w"].shape == t["params"]["w"].shape
 
 
 def test_bfloat16_leaves_round_trip(tmp_path):
@@ -218,3 +238,39 @@ def test_fresh_port_state_round_trips(tmp_path):
     saver.save(3, state)
     saver.wait()
     _same_leaves(ck.restore(str(tmp_path), 3, _zeros_like(state)), state)
+
+
+def test_reference_checkpoint_restores_onto_every_rank_s_shard(tmp_path,
+                                                               states):
+    """The reference's training state, saved by the reference and
+    restored onto a 2 x 2 mesh rank by rank (fake groups, nothing
+    sent): each rank's shards tile every leaf bit for bit."""
+    ref_state, port_state = states
+    ref_ck.save(str(tmp_path), 5, ref_state)
+    specs = model_specs(get_arch("qwen2-1.5b").reduced())
+    mesh = make_production_mesh(shape=(2, 2), device="cpu")
+    pieces = {}
+    for rank in range(4):
+        with fake_world(4, rank=rank), use_ctx(mesh) as ctx:
+            p_sh = pm.shardings(specs, ctx)
+            shs = {"params": p_sh, "opt": {"m": p_sh, "v": p_sh,
+                                           "step": ctx.sharding(())}}
+            got = ck.restore(str(tmp_path), 5, port_state, shardings=shs)
+            for (path, leaf), sh in zip(_paths(got), pm.tree_leaves(shs)):
+                assert leaf.placements == sh.placements
+                pieces.setdefault(path, []).append(
+                    (pm.shard_bounds(leaf.shape, sh), leaf.to_local()))
+    n_sharded = 0
+    for path, want in _paths(port_state):
+        out = torch.zeros_like(want)
+        for bounds, local in pieces[path]:
+            out[tuple(slice(a, b) for a, b in bounds)] = local
+        n_sharded += pieces[path][0][1].numel() < want.numel()
+        assert out.dtype == want.dtype and torch.equal(out, want), path
+    assert n_sharded > 10
+
+
+def _paths(tree, path=()):
+    if isinstance(tree, dict):
+        return [x for k in sorted(tree) for x in _paths(tree[k], path + (k,))]
+    return [(path, tree)]

@@ -37,7 +37,7 @@ def test_importing_every_module_loads_no_jax_and_no_reference():
               "launch.mesh", "launch.decode_demo", "models.transformer",
               "models.moe", "models.ssm", "configs.base", "train.steps",
               "train.optimizer", "train.checkpoint", "train.data",
-              "launch.train"):
+              "launch.train", "launch.dryrun"):
         assert "repro_torch." + m in mods, m
     code = (
         "import importlib, sys\n"

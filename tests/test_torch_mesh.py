@@ -11,7 +11,10 @@ CPU meshes of 1, 2 and 4 shards (the CPU repeated).
   ``HeteroStats`` equal the reference's;
 * a campaign and the campaign CLI with ``--shards 2`` give the unsharded
   results;
-* ``device_grid`` and the mesh constructors.
+* ``device_grid`` and the mesh constructors;
+* the production meshes (``make_production_mesh``, ``make_local_mesh``)
+  over 1, 8, 256 and 512 ranks of fake process groups: the reference's
+  shapes, axis names and errors, and the ``DeviceMesh`` each yields.
 
 Exact equality throughout."""
 
@@ -34,6 +37,7 @@ from repro.designs.ddcf import mult_by_2 as ref_mult_by_2
 from repro.designs.generate import build_design as ref_build_design
 from repro.designs.generate import load_corpus_specs as ref_load_corpus
 from repro.launch.mesh import device_grid as ref_device_grid
+from repro.launch.mesh import make_production_mesh as ref_production_mesh
 from repro.launch.mesh import ensure_host_platform_devices
 
 from repro_torch.core import EvalConfig
@@ -47,10 +51,12 @@ from repro_torch.designs import make_design, mult_by_2
 from repro_torch.designs.generate import build_design, load_corpus_specs
 from repro_torch.kernels.fifo_eval.ops import DISPATCH_COUNTS
 from repro_torch.launch import campaign as campaign_cli
+from repro_torch.launch.dryrun import fake_world
 from repro_torch.launch.mesh import (Mesh, device_grid,
                                      ensure_host_platform_devices as
                                      port_ensure, make_campaign_mesh,
-                                     make_eval_mesh)
+                                     make_eval_mesh, make_local_mesh,
+                                     make_production_mesh)
 
 # the reference's mesh needs jax host devices, requested before jax
 # starts (as tests/test_mesh.py does); the comparisons against the
@@ -365,3 +371,72 @@ def test_spawn_keeps_the_mesh_and_inner_spellings():
     assert MeshBackend(shards=2, inner="fixpoint", device="cpu").use_ref
     with pytest.raises(ValueError, match="inner"):
         MeshBackend(shards=2, inner="jnp", device="cpu")
+
+
+# --------------------------------------------------- production meshes
+@pytest.mark.parametrize("n", [1, 8, 256, 512])
+def test_production_mesh_over_n_ranks_has_the_reference_s_shape(n):
+    """Over ``n`` ranks (a fake group; one CPU without one) the shapes
+    the reference derives from ``n`` devices, and its axis names."""
+    with fake_world(n):
+        m = make_production_mesh(device="cpu")
+        assert (m.shape, m.axis_names) == (ref_device_grid(n),
+                                           ("data", "model"))
+        if n > 1:
+            m = make_production_mesh(multi_pod=True, device="cpu")
+            assert m.shape == (2,) + ref_device_grid(n // 2)
+            assert m.axis_names == ("pod", "data", "model")
+            dm = m.device_mesh()
+            assert dm.mesh_dim_names == m.axis_names
+            assert tuple(dm.mesh.shape) == m.shape
+            assert dm.mesh.flatten().tolist() == list(range(n))
+            assert make_production_mesh(shape=(2, n // 2),
+                                        device="cpu").shape == (2, n // 2)
+            with pytest.raises(ValueError, match="needs"):
+                make_production_mesh(shape=(2, n), device="cpu")
+        else:
+            with pytest.raises(ValueError, match="even device count"):
+                make_production_mesh(multi_pod=True, device="cpu")
+    assert not torch.distributed.is_initialized()
+
+
+def test_production_mesh_raises_where_the_reference_raises():
+    for shape in [(2,), (1, 1, 1, 1)]:
+        with pytest.raises(ValueError, match="2-D") as port:
+            make_production_mesh(shape=shape, device="cpu")
+        with pytest.raises(ValueError, match="2-D") as ref:
+            ref_production_mesh(shape=shape)
+        assert str(port.value) == str(ref.value)
+    with pytest.raises(ValueError, match="needs an even") as port:
+        make_production_mesh(multi_pod=True, device="cpu")
+    if jax.device_count() == 1:
+        with pytest.raises(ValueError, match="needs an even") as ref:
+            ref_production_mesh(multi_pod=True)
+        assert str(port.value) == str(ref.value)
+    # a CPU mesh repeats the CPU as often as the shape asks
+    m = make_production_mesh(shape=(2, 2, 4), device="cpu")
+    assert (m.axis_names, m.size) == (("pod", "data", "model"), 16)
+    loc = make_local_mesh(device="cpu")
+    assert (loc.shape, loc.axis_names, loc.devices) == (
+        (1, 1), ("data", "model"), (CPU,))
+
+
+def test_device_mesh_needs_a_group_of_the_mesh_s_size():
+    m = make_production_mesh(shape=(2, 2), device="cpu")
+    with pytest.raises(RuntimeError, match="world size 4"):
+        m.device_mesh()
+    with fake_world(8):
+        with pytest.raises(RuntimeError, match="world size 4"):
+            m.device_mesh()
+    with fake_world(4):
+        dm = m.device_mesh()
+        assert m.device_mesh() is dm            # kept on the mesh
+        merged = m.device_mesh((("data", "model"),))
+        assert merged.mesh_dim_names == ("data.model",)
+        assert tuple(merged.mesh.shape) == (4,)
+        with pytest.raises(ValueError, match="cover"):
+            m.device_mesh((("model",), ("data",)))
+    with fake_world(4):
+        assert m.device_mesh() is not dm        # a new group, a new mesh
+    # the row-sharding meshes never build one
+    assert "_device_meshes" not in make_eval_mesh(4, device="cpu").__dict__

@@ -168,7 +168,8 @@ def test_configs_equal_the_reference(arch):
 def test_sharding_specs_equal_the_reference():
     """Logical names resolve to mesh axes as in the reference (each axis
     once per spec), and ``constrain`` is the identity on one device and
-    raises naming the ROADMAP item on several."""
+    redistributes on several (a plain tensor counts as replicated: rank
+    0 of a fake group keeps its rows)."""
     jmesh = jax.make_mesh((1, 1), ("data", "model"),
                           devices=jax.devices()[:1])
     tmesh = Mesh(("data", "model"), (1, 1), (CPU,))
@@ -183,9 +184,14 @@ def test_sharding_specs_equal_the_reference():
     assert constrain(x, "batch", "embed") is x
     with use_ctx(tmesh):
         assert constrain(x, "batch", "embed") is x
-    with use_ctx(Mesh(("data", "model"), (2, 1), (CPU, CPU))):
-        with pytest.raises(NotImplementedError, match="ROADMAP P14c"):
-            constrain(x, "batch", "embed")
+    from torch.distributed.tensor import DTensor, Replicate, Shard
+    from repro_torch.launch.dryrun import fake_world
+    with fake_world(2), use_ctx(Mesh(("data", "model"), (2, 1),
+                                     (CPU, CPU))):
+        y = constrain(x, "batch", "embed")
+        assert isinstance(y, DTensor)
+        assert y.placements == (Shard(0), Replicate())
+        assert torch.equal(y.to_local(), x[:1])
     assert constrain(x, "batch", "embed") is x
 
 
