@@ -14,6 +14,7 @@ from typing import Dict, Optional, Tuple
 
 import numpy as np
 
+from repro_torch import obs
 from repro_torch.core.backends import ConfigCache
 from repro_torch.core.config import EvalConfig
 from repro_torch.core.design import Design
@@ -138,31 +139,41 @@ class FifoAdvisor:
         device: the torch device of the tensor backends; ``None`` means
             CUDA and raises without a card (pass ``"cpu"`` to run the
             plain torch versions on the CPU).
+
+    The constructor is the :mod:`repro_torch.obs` span ``construct``,
+    with one child a phase: ``construct.trace``, ``construct.simgraph``,
+    ``construct.evaluator`` (the rung cascade, the operands' upload) and
+    ``construct.baselines``.
     """
 
     def __init__(self, design: Design, config: Optional[EvalConfig] = None,
                  *, upper_bounds: Optional[np.ndarray] = None,
                  device=None):
-        self.config = config if config is not None else EvalConfig()
-        t0 = time.perf_counter()
-        self.design = design
-        self.trace: Trace = collect_trace(design)
-        self.graph: SimGraph = build_simgraph(design, self.trace)
-        self.evaluator = BatchedEvaluator(self.graph, self.config,
-                                          device=device)
-        # One evaluation cache for the whole advisor session: every
-        # optimizer run (and the baselines) shares hits.
-        self.cache = ConfigCache(self.graph.n_fifos)
-        self.trace_time_s = time.perf_counter() - t0
-        self._upper_bounds = upper_bounds
-        self._certification = None   # cached CertificationResult
-        self._lb_cache: Optional[np.ndarray] = None
-        self._channel_bounds = None  # cached ChannelBounds
-        self._incr_base: Optional[np.ndarray] = None
-        # Shared baselines (evaluated outside any optimizer's budget).
-        ctx = self._fresh_ctx(seed=0)
-        self.baseline_max = self._baseline(ctx.baseline_max())
-        self.baseline_min = self._baseline(ctx.baseline_min())
+        with obs.span("construct"):
+            self.config = config if config is not None else EvalConfig()
+            t0 = time.perf_counter()
+            self.design = design
+            with obs.span("construct.trace"):
+                self.trace: Trace = collect_trace(design)
+            with obs.span("construct.simgraph"):
+                self.graph: SimGraph = build_simgraph(design, self.trace)
+            with obs.span("construct.evaluator"):
+                self.evaluator = BatchedEvaluator(self.graph, self.config,
+                                                  device=device)
+            # One evaluation cache for the whole advisor session: every
+            # optimizer run (and the baselines) shares hits.
+            self.cache = ConfigCache(self.graph.n_fifos)
+            self.trace_time_s = time.perf_counter() - t0
+            self._upper_bounds = upper_bounds
+            self._certification = None   # cached CertificationResult
+            self._lb_cache: Optional[np.ndarray] = None
+            self._channel_bounds = None  # cached ChannelBounds
+            self._incr_base: Optional[np.ndarray] = None
+            # Shared baselines (evaluated outside any optimizer's budget).
+            with obs.span("construct.baselines"):
+                ctx = self._fresh_ctx(seed=0)
+                self.baseline_max = self._baseline(ctx.baseline_max())
+                self.baseline_min = self._baseline(ctx.baseline_min())
 
     @classmethod
     def restore(cls, design: Design, *, trace: Trace, graph: SimGraph,

@@ -24,6 +24,11 @@ packs rows from many graphs into one batch over a shared ``E*/F*/R*``
 envelope — one K2 launch in its per-design-table mode on a CUDA device —
 with per-design worklist escalation.  torch is imported lazily, so this
 module stays importable in the numpy-only worker processes.
+
+Spans (:mod:`repro_torch.obs`): ``cascade.rung`` (``rows``, ``accepted``)
+for each rung tried, ``escalation`` (``rows``) around each worklist call
+on UNRESOLVED rows, and ``hetero.stack`` around packing a cross-design
+batch.
 """
 
 from __future__ import annotations
@@ -34,6 +39,7 @@ from typing import Dict, List, Optional, Sequence, Tuple
 
 import numpy as np
 
+from repro_torch import obs
 from repro_torch.core.backends.base import (CONVERGED, DEADLOCK,
                                             F32_EXACT_LIMIT, EvalBackend,
                                             UNRESOLVED)
@@ -85,7 +91,9 @@ class DispatchPolicy:
         dead = status == DEADLOCK
         unresolved = np.flatnonzero(status == UNRESOLVED)
         if unresolved.size:
-            wl_lat, _, wl_status = self.worklist.evaluate(m[unresolved])
+            with obs.span("escalation", rows=int(unresolved.size)):
+                wl_lat, _, wl_status = self.worklist.evaluate(
+                    m[unresolved])
             lat[unresolved] = wl_lat
             dead[unresolved] = wl_status == DEADLOCK
             if stats is not None:
@@ -132,7 +140,6 @@ class RungCascade:
                  ) -> Tuple[np.ndarray, np.ndarray]:
         """Unique (C, F) rows -> exact ``(latency i64, deadlock bool)``
         with -1 latency on deadlocked rows."""
-        from repro_torch.core.condense import verify_rows
         m = np.asarray(m, dtype=np.int64)
         C = m.shape[0]
         lat = np.zeros(C, dtype=np.int64)
@@ -142,32 +149,11 @@ class RungCascade:
             sel = np.flatnonzero(pending & cg.in_box(m))
             if not sel.size:
                 continue
-            rows = m[sel]
-            fused = impl.fused_certificate
-            if impl.wants_bucketing or fused:
-                # the fused kernel path buckets too, as the reference's
-                # does (routing kept so dispatch counts compare)
-                batch = self.policy.pad_batch(rows)
-            else:
-                batch = rows
-            if fused:
-                rlat, _, rstatus, ok = impl.evaluate_certified(batch)
-                rlat = rlat[: sel.size]
-                rstatus = rstatus[: sel.size]
-                ok = ok[: sel.size]
-                dl = rstatus == DEADLOCK   # sound: relaxed system stalls
-            else:
-                rlat, _, rstatus, times = impl.evaluate_with_times(batch)
-                rlat = rlat[: sel.size]
-                rstatus = rstatus[: sel.size]
-                times = times[: sel.size, : cg.n_events]
-                dl = rstatus == DEADLOCK
-                ok = np.zeros(sel.size, dtype=bool)
-                conv = rstatus == CONVERGED
-                if conv.any():
-                    ci = np.flatnonzero(conv)
-                    ok[ci] = verify_rows(cg, rows[ci], times[ci])
-            acc = dl | ok
+            with obs.span("cascade.rung", rows=int(sel.size)) as span:
+                rlat, dl, ok = self._rung(cg, impl, m[sel])
+                acc = dl | ok
+                if span:
+                    span.set(accepted=int(acc.sum()))
             if stats is not None:
                 stats.n_cond_fail += int(sel.size - acc.sum())
             if acc.any():
@@ -186,6 +172,34 @@ class RungCascade:
             lat[rem] = rlat
             dead[rem] = rdead
         return lat, dead
+
+    def _rung(self, cg, impl, rows: np.ndarray
+              ) -> Tuple[np.ndarray, np.ndarray, np.ndarray]:
+        """One rung over its routed ``rows``: ``(latency, deadlock, the
+        certificate passed)`` per row."""
+        n = rows.shape[0]
+        fused = impl.fused_certificate
+        if impl.wants_bucketing or fused:
+            # the fused kernel path buckets too, as the reference's
+            # does (routing kept so dispatch counts compare)
+            batch = self.policy.pad_batch(rows)
+        else:
+            batch = rows
+        if fused:
+            rlat, _, rstatus, ok = impl.evaluate_certified(batch)
+            rlat, rstatus, ok = rlat[:n], rstatus[:n], ok[:n]
+            # sound: the relaxed system stalls
+            return rlat, rstatus == DEADLOCK, ok
+        from repro_torch.core.condense import verify_rows
+        rlat, _, rstatus, times = impl.evaluate_with_times(batch)
+        rlat, rstatus = rlat[:n], rstatus[:n]
+        times = times[:n, : cg.n_events]
+        ok = np.zeros(n, dtype=bool)
+        conv = rstatus == CONVERGED
+        if conv.any():
+            ci = np.flatnonzero(conv)
+            ok[ci] = verify_rows(cg, rows[ci], times[ci])
+        return rlat, rstatus == DEADLOCK, ok
 
 
 @dataclasses.dataclass
@@ -331,11 +345,12 @@ class HeteroDispatcher:
         t_start = time.perf_counter()
         mats = [np.atleast_2d(np.asarray(m, dtype=np.int64))
                 for _, m in items]
-        table_of_row, depths = stack_rows(
-            [(self._slot[k], m) for (k, _), m in zip(items, mats)],
-            self.f_max)
-        C = depths.shape[0]
-        table_of_row, depths = self._pad_rows(table_of_row, depths)
+        with obs.span("hetero.stack"):
+            table_of_row, depths = stack_rows(
+                [(self._slot[k], m) for (k, _), m in zip(items, mats)],
+                self.f_max)
+            C = depths.shape[0]
+            table_of_row, depths = self._pad_rows(table_of_row, depths)
         lat, bram, status = self._call(self._tables, table_of_row, depths)
         lat, bram, status = lat[:C], bram[:C], status[:C]
 
@@ -349,8 +364,9 @@ class HeteroDispatcher:
             dead_i = status[sl] == DEADLOCK
             unresolved = np.flatnonzero(status[sl] == UNRESOLVED)
             if unresolved.size:
-                wl_lat, _, wl_status = self.worklists[key].evaluate(
-                    m[unresolved])
+                with obs.span("escalation", rows=int(unresolved.size)):
+                    wl_lat, _, wl_status = self.worklists[key].evaluate(
+                        m[unresolved])
                 lat_i[unresolved] = wl_lat
                 dead_i[unresolved] = wl_status == DEADLOCK
                 self.stats.n_fallbacks += int(unresolved.size)

@@ -38,6 +38,7 @@ from typing import List, Optional, Tuple
 
 import numpy as np
 
+from repro_torch import obs
 from repro_torch.core.bram import (design_bram_np, fifo_read_latency,
                              read_latency_np)
 from repro_torch.core.design import READ
@@ -224,7 +225,21 @@ _GALLOP0 = 64
 
 
 def solve(g: SimGraph, depths: np.ndarray) -> WorklistState:
-    """Full exact solve of one depth vector, returning a reusable state.
+    """Full exact solve of one depth vector, returning a reusable state
+    (see :func:`_solve`).  One :mod:`repro_torch.obs` span,
+    ``worklist.solve``, with the solve's ``vector_runs`` (stretches on the
+    vector path) and ``scalar_events`` (events on the scalar path)."""
+    with obs.span("worklist.solve") as span:
+        st, vector_runs, scalar_events = _solve(g, depths)
+        if span:
+            span.set(vector_runs=vector_runs, scalar_events=scalar_events)
+    return st
+
+
+def _solve(g: SimGraph, depths: np.ndarray
+           ) -> Tuple[WorklistState, int, int]:
+    """Full exact solve of one depth vector: ``(state, vector runs,
+    scalar events)``.
 
     Event-driven over task segments like the classic worklist, but each
     segment *run* is solved as one vectorized stretch instead of an
@@ -276,6 +291,7 @@ def solve(g: SimGraph, depths: np.ndarray) -> WorklistState:
     boundsl = bounds.tolist()
     queue = deque(range(n_segs))
     queued = [True] * n_segs
+    vector_runs = scalar_events = 0
 
     while queue:
         s = queue.popleft()
@@ -330,6 +346,7 @@ def solve(g: SimGraph, depths: np.ndarray) -> WorklistState:
                             woke_w.add(f2)
                 i += 1
             n = i - lo
+            scalar_events += n
             if n:
                 cursor[s] += n
                 prev_t[s] = pt
@@ -372,6 +389,7 @@ def solve(g: SimGraph, depths: np.ndarray) -> WorklistState:
             vec_ok[s] = False    # ping-pong segment: demote permanently
         if n == 0:
             continue
+        vector_runs += 1
 
         # 2. cross-edge gather for the stretch
         ks = is_read[lo:stop]
@@ -452,7 +470,8 @@ def solve(g: SimGraph, depths: np.ndarray) -> WorklistState:
     lat = -1 if deadlocked else _latency(g, t)
     return WorklistState(depths=depths.copy(), t=t,
                          seg_cursor=cursor_a, seg_complete=complete,
-                         latency=lat, deadlocked=deadlocked)
+                         latency=lat, deadlocked=deadlocked), \
+        vector_runs, scalar_events
 
 
 def solve_delta(g: SimGraph, base: WorklistState, depths: np.ndarray,

@@ -24,6 +24,10 @@ through ``FifoAdvisor.run()`` with the same seed.  Campaign state
 checkpoints to a single ``.npz`` (see ``repro_torch.core.campaign.state``) and
 resumes deterministically by replaying the recorded histories through the
 generators.
+
+Spans (:mod:`repro_torch.obs`): ``campaign.construct`` around the
+constructor (every design's ``construct`` nests in it) and
+``campaign.round`` around each round.
 """
 
 from __future__ import annotations
@@ -34,6 +38,7 @@ from typing import Dict, List, Optional, Sequence, Tuple
 
 import numpy as np
 
+from repro_torch import obs
 from repro_torch.core.advisor import FifoAdvisor
 from repro_torch.core.campaign.router import RoundRouter, RoutedRequest
 from repro_torch.core.config import EvalConfig
@@ -215,64 +220,65 @@ class Campaign:
                  tasks: Optional[Sequence[TaskSpec]] = None,
                  checkpoint_path: Optional[str] = None, device=None,
                  mesh=None):
-        if mesh is not None and not spec.hetero:
-            raise ValueError("Campaign(mesh=...) shards the hetero "
-                             "dispatch only; per-design campaigns shard "
-                             "through spec.eval.shards")
-        self.spec = spec
-        self.device = device
-        self.checkpoint_path = checkpoint_path
-        self.round = 0
-        task_specs = list(tasks) if tasks is not None else spec.tasks()
-        self.designs: Dict[str, DesignContext] = {}
-        for ts in task_specs:
-            if ts.design not in self.designs:
-                self.designs[ts.design] = DesignContext(ts.design, spec,
-                                                        device)
-        self.tasks = [CampaignTask(ts, self.designs[ts.design])
-                      for ts in task_specs]
-        self.pool = None
-        #: pool recovery counters from the last closed pool (chaos gate)
-        self.pool_stats: Optional[Dict] = None
-        from repro_torch.core.faults import resolve_plan
-        self.faults = resolve_plan(spec.eval)
-        if spec.workers > 0 and not spec.hetero:
-            # after the design contexts so forked workers inherit the
-            # built graphs + worklist tables (an advisor that initialised
-            # CUDA makes the pool spawn instead).  Hetero mode owns
-            # every full-solve row in the main process, so a pool would
-            # only ever idle — it is not created (incremental rows run
-            # inline there).
-            from repro_torch.core.campaign.pool import WorkerPool
-            self.pool = WorkerPool(
-                spec.workers, max_iters=spec.max_iters,
-                graphs={k: d.graph for k, d in self.designs.items()},
-                faults=self.faults)
-        # evaluation lanes: lane 0 is THIS process (overlapped with the
-        # pool via submit/collect), lanes 1..workers are pool workers.
-        # Stagger the per-design assignment so the same optimizer on
-        # different designs lands on different lanes (otherwise every
-        # incremental-heavy task can alias onto one lane).
-        n_lanes = spec.workers + 1 if self.pool is not None else 1
-        design_index = {k: i for i, k in enumerate(self.designs)}
-        per_design_count: Dict[str, int] = {}
-        for task in self.tasks:
-            k = task.spec.design
-            c = per_design_count.get(k, 0)
-            per_design_count[k] = c + 1
-            task.worker = (c + design_index[k]) % n_lanes
-        hetero = None
-        if spec.hetero:
-            from repro_torch.core.backends.dispatch import HeteroDispatcher
-            graphs = {k: d.graph for k, d in self.designs.items()}
-            worklists = {k: d.evaluator._worklist
-                         for k, d in self.designs.items()}
-            hetero = HeteroDispatcher(graphs, worklists,
-                                      max_iters=spec.max_iters,
-                                      mesh=mesh, shards=spec.shards,
-                                      device=device)
-        self.router = RoundRouter(self.designs, pool=self.pool,
-                                  hetero=hetero)
+        with obs.span("campaign.construct"):
+            if mesh is not None and not spec.hetero:
+                raise ValueError("Campaign(mesh=...) shards the hetero "
+                                 "dispatch only; per-design campaigns shard "
+                                 "through spec.eval.shards")
+            self.spec = spec
+            self.device = device
+            self.checkpoint_path = checkpoint_path
+            self.round = 0
+            task_specs = list(tasks) if tasks is not None else spec.tasks()
+            self.designs: Dict[str, DesignContext] = {}
+            for ts in task_specs:
+                if ts.design not in self.designs:
+                    self.designs[ts.design] = DesignContext(ts.design, spec,
+                                                            device)
+            self.tasks = [CampaignTask(ts, self.designs[ts.design])
+                          for ts in task_specs]
+            self.pool = None
+            #: pool recovery counters from the last closed pool (chaos gate)
+            self.pool_stats: Optional[Dict] = None
+            from repro_torch.core.faults import resolve_plan
+            self.faults = resolve_plan(spec.eval)
+            if spec.workers > 0 and not spec.hetero:
+                # after the design contexts so forked workers inherit the
+                # built graphs + worklist tables (an advisor that initialised
+                # CUDA makes the pool spawn instead).  Hetero mode owns
+                # every full-solve row in the main process, so a pool would
+                # only ever idle — it is not created (incremental rows run
+                # inline there).
+                from repro_torch.core.campaign.pool import WorkerPool
+                self.pool = WorkerPool(
+                    spec.workers, max_iters=spec.max_iters,
+                    graphs={k: d.graph for k, d in self.designs.items()},
+                    faults=self.faults)
+            # evaluation lanes: lane 0 is THIS process (overlapped with the
+            # pool via submit/collect), lanes 1..workers are pool workers.
+            # Stagger the per-design assignment so the same optimizer on
+            # different designs lands on different lanes (otherwise every
+            # incremental-heavy task can alias onto one lane).
+            n_lanes = spec.workers + 1 if self.pool is not None else 1
+            design_index = {k: i for i, k in enumerate(self.designs)}
+            per_design_count: Dict[str, int] = {}
+            for task in self.tasks:
+                k = task.spec.design
+                c = per_design_count.get(k, 0)
+                per_design_count[k] = c + 1
+                task.worker = (c + design_index[k]) % n_lanes
+            hetero = None
+            if spec.hetero:
+                from repro_torch.core.backends.dispatch import HeteroDispatcher
+                graphs = {k: d.graph for k, d in self.designs.items()}
+                worklists = {k: d.evaluator._worklist
+                             for k, d in self.designs.items()}
+                hetero = HeteroDispatcher(graphs, worklists,
+                                          max_iters=spec.max_iters,
+                                          mesh=mesh, shards=spec.shards,
+                                          device=device)
+            self.router = RoundRouter(self.designs, pool=self.pool,
+                                      hetero=hetero)
 
     @property
     def hetero(self):
@@ -281,37 +287,38 @@ class Campaign:
     # ------------------------------------------------------------- rounds
     def _round(self) -> int:
         """Advance every active task one step; returns #active tasks."""
-        pending: List[RoutedRequest] = []
-        for task in self.tasks:
-            if task.done:
-                continue
-            req = task.opt.propose()
-            if req is None:
-                task.finalize()
-                continue
-            lat, bram, dead, miss = task.dctx.cache.lookup(req.depths)
-            pending.append(RoutedRequest(
-                key=task.spec.design, req=req, lat=lat, bram=bram,
-                dead=dead, miss_rows=np.flatnonzero(miss),
-                lane=task.worker, tag=task))
-        self.router.route(pending)
-        for p in pending:
-            task = p.tag
-            rows = p.miss_rows
-            if rows.size:
-                task.dctx.cache.insert(
-                    p.req.depths[rows], p.lat[rows], p.bram[rows],
-                    p.dead[rows])
-            task.eval_s += p.eval_s
-            task.ctx.record(p.req.depths, p.lat, p.bram, p.dead,
-                            rows.size)
-            task.step_miss.append(int(rows.size))
-            task.opt.observe(p.lat, p.bram, p.dead)
-            if self.spec.track_hypervolume:
-                task.hv_trace.append(
-                    (task.ctx.n_evals, task.running_hypervolume()))
-        self.round += 1
-        return len(pending)
+        with obs.span("campaign.round"):
+            pending: List[RoutedRequest] = []
+            for task in self.tasks:
+                if task.done:
+                    continue
+                req = task.opt.propose()
+                if req is None:
+                    task.finalize()
+                    continue
+                lat, bram, dead, miss = task.dctx.cache.lookup(req.depths)
+                pending.append(RoutedRequest(
+                    key=task.spec.design, req=req, lat=lat, bram=bram,
+                    dead=dead, miss_rows=np.flatnonzero(miss),
+                    lane=task.worker, tag=task))
+            self.router.route(pending)
+            for p in pending:
+                task = p.tag
+                rows = p.miss_rows
+                if rows.size:
+                    task.dctx.cache.insert(
+                        p.req.depths[rows], p.lat[rows], p.bram[rows],
+                        p.dead[rows])
+                task.eval_s += p.eval_s
+                task.ctx.record(p.req.depths, p.lat, p.bram, p.dead,
+                                rows.size)
+                task.step_miss.append(int(rows.size))
+                task.opt.observe(p.lat, p.bram, p.dead)
+                if self.spec.track_hypervolume:
+                    task.hv_trace.append(
+                        (task.ctx.n_evals, task.running_hypervolume()))
+            self.round += 1
+            return len(pending)
 
     # -------------------------------------------------------------- runs
     def run(self, max_rounds: Optional[int] = None):

@@ -21,6 +21,10 @@ Two drivers consume the generator:
 
 Both drivers see identical request/result sequences, so they produce
 identical histories and frontiers for the same seed.
+
+Spans (:mod:`repro_torch.obs`): ``optimizer.step`` (``rows``: the rows of
+the request it yields) around each step of the generator, and
+``fulfill`` (``rows``, ``misses``) around :meth:`EvalContext.fulfill`.
 """
 
 from __future__ import annotations
@@ -31,6 +35,7 @@ from typing import List, Optional, Tuple
 
 import numpy as np
 
+from repro_torch import obs
 from repro_torch.core.backends import ConfigCache
 from repro_torch.core.bram import breakpoints
 from repro_torch.core.pareto import pareto_front
@@ -284,9 +289,15 @@ class EvalContext:
     def fulfill(self, req: EvalRequest
                 ) -> Tuple[np.ndarray, np.ndarray, np.ndarray]:
         """Evaluate one :class:`EvalRequest` (cache + history + budget)."""
-        if req.base is not None:
-            return self.evaluate_delta(req.base, req.depths)
-        return self.evaluate(req.depths)
+        with obs.span("fulfill", rows=req.depths.shape[0]) as span:
+            n0 = self.n_evals
+            if req.base is not None:
+                out = self.evaluate_delta(req.base, req.depths)
+            else:
+                out = self.evaluate(req.depths)
+            if span:
+                span.set(misses=self.n_evals - n0)
+        return out
 
     def history(self) -> Tuple[np.ndarray, np.ndarray, np.ndarray,
                                np.ndarray, np.ndarray]:
@@ -346,17 +357,20 @@ class Optimizer:
             self._advance(None)
 
     def _advance(self, results) -> None:
-        t0 = time.perf_counter()
-        try:
-            if results is None:
-                self._pending = next(self._gen)
-            else:
-                self._pending = self._gen.send(results)
-        except StopIteration:
-            self._pending = None
-            self._done = True
-        finally:
-            self.step_s += time.perf_counter() - t0
+        with obs.span("optimizer.step") as span:
+            t0 = time.perf_counter()
+            try:
+                if results is None:
+                    self._pending = next(self._gen)
+                else:
+                    self._pending = self._gen.send(results)
+            except StopIteration:
+                self._pending = None
+                self._done = True
+            finally:
+                self.step_s += time.perf_counter() - t0
+            if span and self._pending is not None:
+                span.set(rows=self._pending.depths.shape[0])
 
     def propose(self) -> Optional[EvalRequest]:
         """The outstanding batch to evaluate; None once the search ended."""

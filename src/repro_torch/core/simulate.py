@@ -23,6 +23,10 @@ The stable façade over :mod:`repro_torch.core.backends`:
     the condensation ladder in :class:`~repro_torch.core.backends
     .RungCascade`.
 
+Each :meth:`BatchedEvaluator.evaluate` call is one :mod:`repro_torch.obs`
+span, ``evaluate`` (``rows``; ``unique``: the rows left after
+deduplication).
+
 Numeric domain: times are exact in float32 while below 2**24; the design's
 schedule upper bound must stay below 1.5e7 cycles.
 """
@@ -36,6 +40,7 @@ from typing import Optional, Tuple
 
 import numpy as np
 
+from repro_torch import obs
 from repro_torch.core.backends import (BIG, CONVERGED, DEADLOCK,
                                        F32_EXACT_LIMIT, UNRESOLVED,
                                        DispatchPolicy, RungCascade,
@@ -61,7 +66,6 @@ class BatchStats:
     n_dedup: int = 0          # duplicate in-batch rows solved once
     n_condensed: int = 0      # rows resolved on a condensed rung
     n_cond_fail: int = 0      # rung attempts whose certificate failed
-    wall_s: float = 0.0
 
 
 #: the reference's BatchedEvaluator default (the advisor default is 256)
@@ -206,20 +210,21 @@ class BatchedEvaluator:
         is on) and the dispatch policy; -1 latency on deadlocked rows.
         """
         depth_matrix = np.atleast_2d(np.asarray(depth_matrix))
-        t_start = time.perf_counter()
         C = depth_matrix.shape[0]
-        uniq, inverse = np.unique(depth_matrix, axis=0,
-                                  return_inverse=True)
-        if uniq.shape[0] < C:
-            lat, bram, dead = self._eval_rows(uniq)
-            inverse = inverse.reshape(-1)
-            lat, bram, dead = lat[inverse], bram[inverse], dead[inverse]
-            self.stats.n_dedup += C - uniq.shape[0]
-        else:
-            lat, bram, dead = self._eval_rows(depth_matrix)
+        with obs.span("evaluate", rows=C) as span:
+            uniq, inverse = np.unique(depth_matrix, axis=0,
+                                      return_inverse=True)
+            if span:
+                span.set(unique=uniq.shape[0])
+            if uniq.shape[0] < C:
+                lat, bram, dead = self._eval_rows(uniq)
+                inverse = inverse.reshape(-1)
+                lat, bram, dead = lat[inverse], bram[inverse], dead[inverse]
+                self.stats.n_dedup += C - uniq.shape[0]
+            else:
+                lat, bram, dead = self._eval_rows(depth_matrix)
         self.stats.n_calls += 1
         self.stats.n_configs += C
-        self.stats.wall_s += time.perf_counter() - t_start
         return lat, bram, dead
 
     def _eval_rows(self, m: np.ndarray
@@ -267,7 +272,6 @@ class BatchedEvaluator:
             base = np.atleast_2d(np.asarray(base_depths, dtype=np.int64))
             if base.shape[0] == 1 and C > 1:
                 base = np.broadcast_to(base, m.shape)
-        t_start = time.perf_counter()
         lat = np.zeros(C, dtype=np.int64)
         dead = np.zeros(C, dtype=bool)
         for i in range(C):
@@ -283,7 +287,6 @@ class BatchedEvaluator:
         self.stats.n_calls += 1
         self.stats.n_configs += C
         self.stats.n_incremental += C
-        self.stats.wall_s += time.perf_counter() - t_start
         return lat, bram, dead
 
     @property

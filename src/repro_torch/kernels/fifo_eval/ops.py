@@ -20,6 +20,14 @@ graphs in one K2 launch in its per-design-table mode (the plain
 Each closure takes ``mesh=`` (:mod:`repro_torch.launch.mesh`): the rows
 are then split into contiguous blocks, one per shard, and every shard
 launches its own kernel on its device (:func:`_shard_over_rows`).
+
+Each call is one :mod:`repro_torch.obs` span, ``launch.k2``, ``launch.k1``
+or ``launch.k2_hetero`` (``rows``: the rows launched, padding included;
+``iters``: the iterations they ran, summed), around the whole host path.
+Its children are ``launch.operands`` (the depth-dependent operands),
+``launch.kernel`` (the kernel call, which enqueues it on a CUDA device)
+and ``launch.readback`` (the copy to the host, which waits for the
+device); a sharded call has these once per shard.
 """
 
 from __future__ import annotations
@@ -31,6 +39,7 @@ from typing import Callable, Optional, Tuple
 import numpy as np
 import torch
 
+from repro_torch import obs
 from repro_torch.core.backends.base import (CONVERGED, DEADLOCK, UNRESOLVED,
                                             resolve_device)
 from repro_torch.core.backends.operands import (HeteroTables,
@@ -50,6 +59,8 @@ from repro_torch.kernels.fifo_eval.ref import fifo_eval_plain
 #: costs exactly ONE "condensed" dispatch and never touches the host
 #: verifier.
 DISPATCH_COUNTS: Counter = Counter()
+#: the output lane that holds the iterations a row ran
+ITERS_LANE = 3
 
 
 def _status(out: torch.Tensor, structural: torch.Tensor) -> torch.Tensor:
@@ -65,7 +76,8 @@ def _status(out: torch.Tensor, structural: torch.Tensor) -> torch.Tensor:
 
 
 def _numpy(*xs) -> Tuple[np.ndarray, ...]:
-    return tuple(x.cpu().numpy() for x in xs)
+    with obs.span("launch.readback"):
+        return tuple(x.cpu().numpy() for x in xs)
 
 
 def _rows(a: np.ndarray, dev: torch.device) -> torch.Tensor:
@@ -124,6 +136,18 @@ def _over(run: Callable, device, mesh, kind: str) -> Callable:
     return call
 
 
+def _launch(name: str, go: Callable, *row_arrays, **fixed) -> tuple:
+    """``go(*row_arrays, **fixed)`` in the span ``name``; while it
+    records, ``go`` also returns the iteration lane, which is summed into
+    the span's ``iters`` (it rides the same copy back, no extra wait)."""
+    with obs.span(name, rows=int(row_arrays[-1].shape[0])) as s:
+        if not s:
+            return go(*row_arrays, **fixed)
+        *res, iters = go(*row_arrays, iters=True, **fixed)
+        s.set(iters=int(iters.astype(np.int64).sum()))
+        return tuple(res)
+
+
 def make_batched_eval(g, use_ref: bool = False, max_iters: int = 64,
                       with_times: bool = False, device=None,
                       mesh=None) -> Callable:
@@ -141,29 +165,34 @@ def make_batched_eval(g, use_ref: bool = False, max_iters: int = 64,
     opses = {d: get_operands(g, d) for d in _devices(device, mesh)}
     inner = fifo_eval_plain if use_ref else fifo_eval
 
-    def run(dev, depth_matrix):
+    def run(dev, depth_matrix, iters=False):
         ops = opses[dev]
-        depths = _rows(depth_matrix, dev)
-        rd_lat_e, bp_idx, bp_valid, bp_base, structural = depth_operands(
-            ops, depths)
-        out, times = inner(ops.delta, ops.seg_start, ops.is_read,
-                           ops.has_data, ops.data_idx, ops.end_bonus,
-                           rd_lat_e, bp_idx, bp_valid, bp_base,
-                           max_iters=max_iters, bound=ops.bound,
-                           with_times=with_times)
+        with obs.span("launch.operands"):
+            depths = _rows(depth_matrix, dev)
+            rd_lat_e, bp_idx, bp_valid, bp_base, structural = \
+                depth_operands(ops, depths)
+        with obs.span("launch.kernel"):
+            out, times = inner(ops.delta, ops.seg_start, ops.is_read,
+                               ops.has_data, ops.data_idx, ops.end_bonus,
+                               rd_lat_e, bp_idx, bp_valid, bp_base,
+                               max_iters=max_iters, bound=ops.bound,
+                               with_times=with_times)
         lat = torch.clamp(out[:, 0], min=ops.taskless_lat)
         status = _status(out, structural)
         bram = bram_count_torch(depths, ops.widths[None, :]).sum(
             dim=1, dtype=torch.int32)
+        res = (lat, bram, status)
         if with_times:
-            return lat, bram, status, times
-        return lat, bram, status
+            res += (times,)
+        if iters:
+            res += (out[:, ITERS_LANE],)
+        return res
 
     go = _over(run, device, mesh, "batched")
 
     def call(depth_matrix: np.ndarray) -> Tuple[np.ndarray, ...]:
         DISPATCH_COUNTS["batched"] += 1
-        return go(depth_matrix)
+        return _launch("launch.k2", go, depth_matrix)
 
     return call
 
@@ -188,17 +217,19 @@ def make_condensed_eval(cg, max_iters: int = 64, with_times: bool = False,
         return None
     max_iters = int(max_iters)
 
-    def run(dev, depth_matrix):
+    def run(dev, depth_matrix, iters=False):
         ops, ct = opses[dev], cts[dev]
-        depths = _rows(depth_matrix, dev)
-        rd_lat_e, bp_idx, bp_valid, bp_base, structural = depth_operands(
-            ops, depths)
-        csrc, cdst, cthr, cval = cert_row_operands(ops, ct, depths)
-        out, times = fifo_eval_condensed(
-            ops.delta, ops.seg_start, ops.is_read, ops.has_data,
-            ops.data_idx, ops.end_bonus, rd_lat_e, bp_idx, bp_valid,
-            bp_base, csrc, cdst, cthr, cval, max_iters=max_iters,
-            bound=ops.bound, with_times=with_times)
+        with obs.span("launch.operands"):
+            depths = _rows(depth_matrix, dev)
+            rd_lat_e, bp_idx, bp_valid, bp_base, structural = \
+                depth_operands(ops, depths)
+            csrc, cdst, cthr, cval = cert_row_operands(ops, ct, depths)
+        with obs.span("launch.kernel"):
+            out, times = fifo_eval_condensed(
+                ops.delta, ops.seg_start, ops.is_read, ops.has_data,
+                ops.data_idx, ops.end_bonus, rd_lat_e, bp_idx, bp_valid,
+                bp_base, csrc, cdst, cthr, cval, max_iters=max_iters,
+                bound=ops.bound, with_times=with_times)
         lat = torch.clamp(out[:, 0], min=ops.taskless_lat)
         status = _status(out, structural)
         # kernel cert = conv & ~over & no violated slot; a structurally
@@ -208,14 +239,16 @@ def make_condensed_eval(cg, max_iters: int = 64, with_times: bool = False,
             dim=1, dtype=torch.int32)
         res = (lat, bram, status, cert)
         if with_times:
-            res = res + (times,)
+            res += (times,)
+        if iters:
+            res += (out[:, ITERS_LANE],)
         return res
 
     go = _over(run, device, mesh, "condensed")
 
     def call(depth_matrix: np.ndarray) -> Tuple[np.ndarray, ...]:
         DISPATCH_COUNTS["condensed"] += 1
-        return go(depth_matrix)
+        return _launch("launch.k1", go, depth_matrix)
 
     return call
 
@@ -251,22 +284,28 @@ def make_hetero_batched_eval(max_iters: int = 64, device=None,
                 if isinstance(getattr(tables, f.name), torch.Tensor)}))
         return hit[1]
 
-    def run(dev, table_of_row, depth_matrix, tables):
-        tables = tables_on(tables, dev)
-        tor = _rows(table_of_row, dev)
-        depths = _rows(depth_matrix, dev)
-        idx = tor.long()
-        rd_lat_e, bp_idx, bp_valid, structural, w = hetero_depth_operands(
-            tables, idx, depths)
-        out, _ = fifo_eval_hetero(
-            tables.delta, tables.seg_start, tables.is_read,
-            tables.has_data, tables.data_idx, tables.end_bonus, rd_lat_e,
-            bp_idx, bp_valid, table_of_row=tor, bounds=tables.bound[idx],
-            max_iters=max_iters)
+    def run(dev, table_of_row, depth_matrix, tables, iters=False):
+        with obs.span("launch.operands"):
+            tables = tables_on(tables, dev)
+            tor = _rows(table_of_row, dev)
+            depths = _rows(depth_matrix, dev)
+            idx = tor.long()
+            rd_lat_e, bp_idx, bp_valid, structural, w = \
+                hetero_depth_operands(tables, idx, depths)
+            bounds = tables.bound[idx]
+        with obs.span("launch.kernel"):
+            out, _ = fifo_eval_hetero(
+                tables.delta, tables.seg_start, tables.is_read,
+                tables.has_data, tables.data_idx, tables.end_bonus,
+                rd_lat_e, bp_idx, bp_valid, table_of_row=tor,
+                bounds=bounds, max_iters=max_iters)
         lat = torch.maximum(out[:, 0], tables.taskless[idx])
         status = _status(out, structural)
         bram = bram_count_torch(depths, w).sum(dim=1, dtype=torch.int32)
-        return lat, bram, status
+        res = (lat, bram, status)
+        if iters:
+            res += (out[:, ITERS_LANE],)
+        return res
 
     go = _over(run, device, mesh, "hetero")
 
@@ -274,7 +313,8 @@ def make_hetero_batched_eval(max_iters: int = 64, device=None,
              depth_matrix: np.ndarray
              ) -> Tuple[np.ndarray, np.ndarray, np.ndarray]:
         DISPATCH_COUNTS["hetero"] += 1
-        lat, bram, status = go(table_of_row, depth_matrix, tables=tables)
+        lat, bram, status = _launch("launch.k2_hetero", go, table_of_row,
+                                    depth_matrix, tables=tables)
         return (np.asarray(np.rint(lat), dtype=np.int64),
                 np.asarray(bram, dtype=np.int64), status)
 
