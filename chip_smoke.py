@@ -1412,7 +1412,10 @@ def shard_counts(prefix: str, n: int) -> list:
 
 def check_shards(label: str, counts: dict, n: int, kinds) -> dict:
     """Every shard launched each closure kind of ``kinds`` (``{kind:
-    kernel counter}``), and the kernel counters equal the shards' sum."""
+    kernel counter}``), and the kernel counters equal the shards' sum
+    plus the unsharded launches (the escalation tier's, on the mesh's
+    first device: every call counts once under ``kind``, a sharded one
+    also once under each shard)."""
     by_shard = {}
     for kind, kernel in kinds.items():
         per = [counts["dispatch"].get(f"{kind}@shard{i}", 0)
@@ -1420,10 +1423,11 @@ def check_shards(label: str, counts: dict, n: int, kinds) -> dict:
         if min(per) == 0:
             raise AssertionError(f"{label}: {kernel} never launched on "
                                  f"some shard: {per}")
-        if sum(per) != counts[kernel]:
+        unsharded = counts["dispatch"].get(kind, 0) - per[0]
+        if sum(per) + unsharded != counts[kernel]:
             raise AssertionError(f"{label}: {kernel} launched "
                                  f"{counts[kernel]} times, the shards "
-                                 f"{per}")
+                                 f"{per}, unsharded {unsharded}")
         by_shard[kernel] = per
     return by_shard
 

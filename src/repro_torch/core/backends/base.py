@@ -9,7 +9,8 @@ of candidate depth vectors into exact ``(latency, bram, status)`` triples:
 
 ``status`` is per-row: CONVERGED rows carry an exact latency, DEADLOCK rows
 are infeasible, UNRESOLVED rows hit an iteration cap and must be escalated
-to the worklist arbiter (see :mod:`repro_torch.core.backends.dispatch`).
+(see :mod:`repro_torch.core.backends.dispatch`): to K2 at
+:data:`ESCALATION_ITERS` on a CUDA device, then to the worklist arbiter.
 
 Tensor backends take ``device=None``, which means ``torch.device("cuda")``;
 without a CUDA device they raise unless the caller passes ``device="cpu"``.
@@ -32,6 +33,15 @@ F32_EXACT_LIMIT = 1.5e7
 CONVERGED = 0
 DEADLOCK = 1
 UNRESOLVED = 2
+
+#: the iteration cap of the device escalation tier: rows UNRESOLVED at the
+#: first cap (``EvalConfig.max_iters``) are relaunched through K2 from zero
+#: at this cap before any reaches the worklist.  On the Stream-HLS suite
+#: every such row is a deadlock that K2 proves (``max(t)`` over the bound)
+#: in 721-744 iterations; 2048 leaves about 2.8x of room, and a row that
+#: needs more still reaches the worklist.  A routing constant, not a
+#: setting: results are exact at any cap.
+ESCALATION_ITERS = 2048
 
 
 def resolve_device(device=None):
@@ -61,6 +71,10 @@ class EvalBackend(abc.ABC):
     #: ``evaluate_certified(m) -> (lat, bram, status, cert)`` and the
     #: rung cascade skips the host-side ``verify_rows`` entirely
     fused_certificate: bool = False
+    #: True when the backend runs K2 on a CUDA device: the dispatch policy
+    #: then settles UNRESOLVED rows with ``escalate(m) -> (lat, status)``,
+    #: one K2 launch at :data:`ESCALATION_ITERS`, before the worklist
+    device_escalation: bool = False
 
     def __init__(self, max_iters: int = 64, device=None):
         self.max_iters = int(max_iters)

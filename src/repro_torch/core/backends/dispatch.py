@@ -7,9 +7,15 @@
 2. **Status resolution** — DEADLOCK rows become infeasible (-1 latency);
    CONVERGED rows pass through.
 3. **Escalation** — UNRESOLVED rows (the iteration cap fired before the
-   fixpoint converged) are re-solved exactly by the worklist arbiter,
-   counted in ``stats.n_fallbacks``.  This is the algorithm, not a
-   fallback: the reference escalates the same rows.
+   fixpoint converged) are re-solved exactly, counted in
+   ``stats.n_fallbacks``.  This is the algorithm, not a fallback: the
+   reference escalates the same rows.  Where the backend runs K2 on a
+   CUDA device (``device_escalation``), one K2 launch at
+   :data:`~repro_torch.core.backends.base.ESCALATION_ITERS` settles them
+   first: its CONVERGED rows are exact and its DEADLOCK rows deadlocked,
+   as at the first cap (iterates from zero are lower bounds of the least
+   fixpoint, so over the bound is a deadlock).  The worklist arbiter
+   solves the rows still UNRESOLVED.
 
 :class:`RungCascade` owns the condensation escalation ladder: route each
 row through the most aggressive admissible rung, accept rows whose
@@ -22,17 +28,20 @@ Kernel-backed rung evaluators certify on the device
 :class:`HeteroDispatcher` extends the same concerns across *designs*: it
 packs rows from many graphs into one batch over a shared ``E*/F*/R*``
 envelope — one K2 launch in its per-design-table mode on a CUDA device —
-with per-design worklist escalation.  torch is imported lazily, so this
-module stays importable in the numpy-only worker processes.
+with the same escalation: a dispatch's UNRESOLVED rows of every design in
+one K2 launch on a CUDA device, then each design's worklist.  torch is
+imported lazily, so this module stays importable in the numpy-only worker
+processes.
 
 Spans (:mod:`repro_torch.obs`): ``cascade.rung`` (``rows``, ``accepted``)
-for each rung tried, ``escalation`` (``rows``) around each worklist call
-on UNRESOLVED rows, and ``hetero.stack`` around packing a cross-design
-batch.
+for each rung tried, ``escalation`` around the escalation of UNRESOLVED
+rows (``rows``; ``device``: the rows K2 settled, where it runs), and
+``hetero.stack`` around packing a cross-design batch.
 """
 
 from __future__ import annotations
 
+import contextlib
 import dataclasses
 import time
 from typing import Dict, List, Optional, Sequence, Tuple
@@ -41,11 +50,22 @@ import numpy as np
 
 from repro_torch import obs
 from repro_torch.core.backends.base import (CONVERGED, DEADLOCK,
+                                            ESCALATION_ITERS,
                                             F32_EXACT_LIMIT, EvalBackend,
                                             UNRESOLVED)
 from repro_torch.core.backends.worklist import WorklistBackend
 
 BUCKETS = (1, 8, 32, 128, 512, 2048)
+
+
+def _settle(rows: np.ndarray, r_lat: np.ndarray, r_status: np.ndarray,
+            lat: np.ndarray, dead: np.ndarray) -> np.ndarray:
+    """Write the answers of the ``rows`` that ``r_status`` resolves into
+    ``lat`` and ``dead``; returns the rows still UNRESOLVED."""
+    done = r_status != UNRESOLVED
+    lat[rows[done]] = r_lat[done]
+    dead[rows[done]] = r_status[done] == DEADLOCK
+    return rows[~done]
 
 
 class DispatchPolicy:
@@ -91,11 +111,16 @@ class DispatchPolicy:
         dead = status == DEADLOCK
         unresolved = np.flatnonzero(status == UNRESOLVED)
         if unresolved.size:
-            with obs.span("escalation", rows=int(unresolved.size)):
-                wl_lat, _, wl_status = self.worklist.evaluate(
-                    m[unresolved])
-            lat[unresolved] = wl_lat
-            dead[unresolved] = wl_status == DEADLOCK
+            with obs.span("escalation", rows=int(unresolved.size)) as span:
+                rest = unresolved
+                if backend.device_escalation:
+                    rest = _settle(unresolved,
+                                   *backend.escalate(m[unresolved]),
+                                   lat, dead)
+                    span.set(device=int(unresolved.size - rest.size))
+                if rest.size:
+                    wl_lat, _, wl_status = self.worklist.evaluate(m[rest])
+                    _settle(rest, wl_lat, wl_status, lat, dead)
             if stats is not None:
                 stats.n_fallbacks += int(unresolved.size)
         lat = np.where(dead, -1, lat)
@@ -220,8 +245,10 @@ class HeteroDispatcher:
     (:class:`~repro_torch.core.backends.operands.HeteroTables`).  A
     dispatch sends each row's table index and depths, padded to a bucket
     of :attr:`BUCKETS` (the reference's sizes), through one launch.
-    UNRESOLVED rows are escalated to the owning design's worklist
-    arbiter, exactly like :class:`DispatchPolicy`.  ``device=None``
+    UNRESOLVED rows are escalated exactly like :class:`DispatchPolicy`:
+    on a CUDA device (:attr:`device_escalation`) those of every design in
+    one K2 launch at :attr:`escalation_iters` over the same tables, then
+    what is left to the owning design's worklist arbiter.  ``device=None``
     means ``cuda``.
 
     ``mesh`` (or ``shards``, a 1-D eval mesh over that many devices of
@@ -234,6 +261,8 @@ class HeteroDispatcher:
 
     #: finer-grained than BUCKETS: cross-design batches vary more in size
     BUCKETS = (1, 2, 4, 8, 16, 32, 64, 128, 256, 512, 1024, 2048, 4096)
+    #: the cap of the escalation launch
+    escalation_iters = ESCALATION_ITERS
 
     def __init__(self, graphs: Dict[str, object],
                  worklists: Optional[Dict[str, WorklistBackend]] = None,
@@ -263,6 +292,10 @@ class HeteroDispatcher:
         self.worklists: Dict[str, WorklistBackend] = {}
         self._call = make_hetero_batched_eval(max_iters, device=self.device,
                                               mesh=mesh)
+        # unpadded, on the first device of a mesh, no BRAM count
+        self._escalate = make_hetero_batched_eval(
+            self.escalation_iters, device=self.device, with_bram=False) \
+            if self.device_escalation else None
         self.buckets = tuple(buckets)
         self.stats = HeteroStats()
         worklists = worklists or {}
@@ -275,6 +308,12 @@ class HeteroDispatcher:
             self.r_max = max(o.n_flat_reads for o in opses)
         for k, g in graphs.items():
             self.add_design(k, g, worklists.get(k))
+
+    @property
+    def device_escalation(self) -> bool:
+        """Whether UNRESOLVED rows go through K2 at
+        :attr:`escalation_iters` before the worklists: on a CUDA device."""
+        return self.device.type == "cuda"
 
     def add_design(self, key: str, graph,
                    worklist: Optional[WorklistBackend] = None) -> None:
@@ -353,27 +392,39 @@ class HeteroDispatcher:
             table_of_row, depths = self._pad_rows(table_of_row, depths)
         lat, bram, status = self._call(self._tables, table_of_row, depths)
         lat, bram, status = lat[:C], bram[:C], status[:C]
-
-        out = []
-        row0 = 0
-        for (key, _), m in zip(items, mats):
-            c = m.shape[0]
-            sl = slice(row0, row0 + c)
-            row0 += c
-            lat_i, bram_i = lat[sl].copy(), bram[sl].copy()
-            dead_i = status[sl] == DEADLOCK
-            unresolved = np.flatnonzero(status[sl] == UNRESOLVED)
-            if unresolved.size:
-                with obs.span("escalation", rows=int(unresolved.size)):
-                    wl_lat, _, wl_status = self.worklists[key].evaluate(
-                        m[unresolved])
-                lat_i[unresolved] = wl_lat
-                dead_i[unresolved] = wl_status == DEADLOCK
-                self.stats.n_fallbacks += int(unresolved.size)
-            lat_i = np.where(dead_i, -1, lat_i)
-            out.append((lat_i, bram_i, dead_i))
+        dead = status == DEADLOCK
+        unresolved = np.flatnonzero(status == UNRESOLVED)
+        row0 = np.cumsum([0] + [m.shape[0] for m in mats])
+        if unresolved.size and self._escalate is not None:
+            with obs.span("escalation", rows=int(unresolved.size)) as span:
+                rest = _settle(unresolved, *self._escalate(
+                    self._tables, table_of_row[unresolved],
+                    depths[unresolved]), lat, dead)
+                span.set(device=int(unresolved.size - rest.size))
+                self._worklists(items, mats, row0, rest, lat, dead, False)
+        else:
+            self._worklists(items, mats, row0, unresolved, lat, dead, True)
+        self.stats.n_fallbacks += int(unresolved.size)
+        lat = np.where(dead, -1, lat)
+        out = [(lat[a:b], bram[a:b], dead[a:b])
+               for a, b in zip(row0[:-1], row0[1:])]
         self.stats.n_dispatches += 1
         self.stats.n_rows += C
         self.stats.n_pad_rows += depths.shape[0] - C
         self.stats.wall_s += time.perf_counter() - t_start
         return out
+
+    def _worklists(self, items, mats, row0: np.ndarray, rows: np.ndarray,
+                   lat: np.ndarray, dead: np.ndarray, spans: bool) -> None:
+        """Solve the UNRESOLVED ``rows`` (indices into the stacked batch)
+        on each item's worklist, one call an item, each in an
+        ``escalation`` span where ``spans`` (else the caller's span holds
+        them all)."""
+        owner = np.searchsorted(row0, rows, side="right") - 1
+        for i in np.unique(owner):
+            sel = rows[owner == i]
+            with obs.span("escalation", rows=int(sel.size)) if spans \
+                    else contextlib.nullcontext():
+                wl_lat, _, wl_status = self.worklists[items[i][0]].evaluate(
+                    mats[i][sel - row0[i]])
+            _settle(sel, wl_lat, wl_status, lat, dead)

@@ -10,7 +10,9 @@ over a batch of candidate depth vectors.  A true deadlock is a positive
 cycle: iterates grow strictly, provably never converging; rows are flagged
 DEADLOCK as soon as any time exceeds the design's schedule upper bound,
 and anything still unresolved at the iteration cap is reported UNRESOLVED
-for the dispatch policy to escalate to the worklist arbiter.
+for the dispatch policy to escalate: through K2 at a deeper cap where the
+backend runs K2 on a CUDA device (``escalate``), then to the worklist
+arbiter.
 
 The two backends share all operand preparation
 (:mod:`repro_torch.core.backends.operands`) and the evaluation closures
@@ -35,8 +37,8 @@ import numpy as np
 
 from repro_torch.core.simgraph import SimGraph
 
-from repro_torch.core.backends.base import (EvalBackend, register_backend,
-                                            resolve_device)
+from repro_torch.core.backends.base import (ESCALATION_ITERS, EvalBackend,
+                                            register_backend, resolve_device)
 from repro_torch.core.backends.operands import get_operands
 
 #: minimum condensation ratio for the kernel backend to fuse the
@@ -53,6 +55,8 @@ class _ScanBackend(EvalBackend):
     #: a :class:`repro_torch.launch.mesh.Mesh` to shard the rows over
     #: (None = one device); set by the MeshBackend subclass
     mesh = None
+    #: the cap of :meth:`escalate`'s launch
+    escalation_iters = ESCALATION_ITERS
 
     def __init__(self, max_iters: int = 64, device=None):
         super().__init__(max_iters=max_iters,
@@ -81,6 +85,7 @@ class _ScanBackend(EvalBackend):
             g, use_ref=self.use_ref, max_iters=self.max_iters,
             device=self.device, mesh=self.mesh)
         self._call_times = None
+        self._escalate = None
         # the kernel backend prepared on a CondensedGraph fuses the
         # exactness certificate into the evaluation launch (the rung
         # cascade then never ships event times to the host); the plain
@@ -101,6 +106,30 @@ class _ScanBackend(EvalBackend):
     @property
     def fused_certificate(self) -> bool:
         return getattr(self, "_fused", None) is not None
+
+    @property
+    def device_escalation(self) -> bool:
+        """K2 on a CUDA device: one launch settles a dispatch's
+        UNRESOLVED rows in microseconds an iteration, where the host
+        worklist takes milliseconds a row (:meth:`escalate`)."""
+        return not self.use_ref and self.device.type == "cuda"
+
+    def escalate(self, depth_matrix: np.ndarray
+                 ) -> Tuple[np.ndarray, np.ndarray]:
+        """(C, F) UNRESOLVED rows -> (latency i64, status i8) from one K2
+        launch at :attr:`escalation_iters`, from zero as every launch
+        starts.  Rows are launched unpadded (K2 compiles nothing per
+        shape), on the mesh's first device where there is a mesh, and
+        without the BRAM count, which escalation does not read."""
+        if self._escalate is None:
+            from repro_torch.kernels.fifo_eval.ops import make_batched_eval
+            self._escalate = make_batched_eval(
+                self.g, max_iters=self.escalation_iters,
+                device=self.device, with_bram=False)
+        lat, status = self._escalate(
+            np.atleast_2d(np.asarray(depth_matrix, dtype=np.int32)))
+        return (np.asarray(np.rint(lat), dtype=np.int64),
+                np.asarray(status, dtype=np.int8))
 
     def evaluate_certified(self, depth_matrix: np.ndarray
                            ) -> Tuple[np.ndarray, np.ndarray, np.ndarray,

@@ -37,8 +37,9 @@ class MeshBackend(_ScanBackend):
     """Config-batch-sharded evaluation over a device mesh.
 
     Args:
-        max_iters: fixpoint iteration cap (UNRESOLVED rows escalate to
-            the worklist, as on every batched backend).
+        max_iters: fixpoint iteration cap (UNRESOLVED rows escalate as
+            on every batched backend; the deep-cap K2 launch runs on the
+            mesh's first device).
         mesh: an explicit :class:`repro_torch.launch.mesh.Mesh`; rows are
             partitioned jointly over ALL of its axes, so both a 1-D
             ``("eval",)`` mesh and a 2-D ``("design", "eval")`` campaign

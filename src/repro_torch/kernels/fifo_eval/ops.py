@@ -150,12 +150,14 @@ def _launch(name: str, go: Callable, *row_arrays, **fixed) -> tuple:
 
 def make_batched_eval(g, use_ref: bool = False, max_iters: int = 64,
                       with_times: bool = False, device=None,
-                      mesh=None) -> Callable:
+                      mesh=None, with_bram: bool = True) -> Callable:
     """Build the batched evaluation closure for a graph (raw or condensed:
     the condensation offsets ride the shared operands).
 
     ``call(depths) -> (lat f32, bram i32, status i8)`` as numpy arrays,
-    plus the (C, E_pad) final times (f32) with ``with_times``.
+    plus the (C, E_pad) final times (f32) with ``with_times``; without
+    ``with_bram`` (the escalation tier, which reads no BRAM count)
+    ``(lat, status)``.
     ``device=None`` means ``cuda``.  ``mesh`` (a
     :class:`repro_torch.launch.mesh.Mesh`) shards the rows over its
     devices instead, the operands copied once to each distinct device; the
@@ -179,9 +181,9 @@ def make_batched_eval(g, use_ref: bool = False, max_iters: int = 64,
                                with_times=with_times)
         lat = torch.clamp(out[:, 0], min=ops.taskless_lat)
         status = _status(out, structural)
-        bram = bram_count_torch(depths, ops.widths[None, :]).sum(
-            dim=1, dtype=torch.int32)
-        res = (lat, bram, status)
+        bram = (bram_count_torch(depths, ops.widths[None, :]).sum(
+            dim=1, dtype=torch.int32),) if with_bram else ()
+        res = (lat, *bram, status)
         if with_times:
             res += (times,)
         if iters:
@@ -254,11 +256,12 @@ def make_condensed_eval(cg, max_iters: int = 64, with_times: bool = False,
 
 
 def make_hetero_batched_eval(max_iters: int = 64, device=None,
-                             mesh=None) -> Callable:
+                             mesh=None, with_bram: bool = True) -> Callable:
     """Build the CROSS-DESIGN batched evaluation closure.
 
     ``call(tables, table_of_row, depths) -> (latency i64, bram i64,
-    status i8)`` (numpy): ``tables`` a :class:`~repro_torch.core.backends
+    status i8)`` (numpy), ``(latency, status)`` without ``with_bram``:
+    ``tables`` a :class:`~repro_torch.core.backends
     .operands.HeteroTables`, ``table_of_row`` (C,) and ``depths`` (C, F*)
     numpy, as :func:`~repro_torch.core.backends.operands.stack_rows` makes
     them.  Every row reads its own design's tables, so one launch mixes
@@ -301,8 +304,9 @@ def make_hetero_batched_eval(max_iters: int = 64, device=None,
                 bounds=bounds, max_iters=max_iters)
         lat = torch.maximum(out[:, 0], tables.taskless[idx])
         status = _status(out, structural)
-        bram = bram_count_torch(depths, w).sum(dim=1, dtype=torch.int32)
-        res = (lat, bram, status)
+        bram = (bram_count_torch(depths, w).sum(dim=1, dtype=torch.int32),
+                ) if with_bram else ()
+        res = (lat, *bram, status)
         if iters:
             res += (out[:, ITERS_LANE],)
         return res
@@ -310,12 +314,13 @@ def make_hetero_batched_eval(max_iters: int = 64, device=None,
     go = _over(run, device, mesh, "hetero")
 
     def call(tables: HeteroTables, table_of_row: np.ndarray,
-             depth_matrix: np.ndarray
-             ) -> Tuple[np.ndarray, np.ndarray, np.ndarray]:
+             depth_matrix: np.ndarray) -> Tuple[np.ndarray, ...]:
         DISPATCH_COUNTS["hetero"] += 1
-        lat, bram, status = _launch("launch.k2_hetero", go, table_of_row,
-                                    depth_matrix, tables=tables)
-        return (np.asarray(np.rint(lat), dtype=np.int64),
-                np.asarray(bram, dtype=np.int64), status)
+        res = _launch("launch.k2_hetero", go, table_of_row, depth_matrix,
+                      tables=tables)
+        lat = np.asarray(np.rint(res[0]), dtype=np.int64)
+        if not with_bram:
+            return lat, res[1]
+        return lat, np.asarray(res[1], dtype=np.int64), res[2]
 
     return call
