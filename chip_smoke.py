@@ -11,8 +11,9 @@ Phases, each printing JSON lines (any failure raises and exits nonzero):
 2. the build: both CUDA kernels compiled with nvcc from ``src/repro_torch/
    csrc`` (seconds, registers and spills from ptxas);
 3. each kernel against its plain torch version on the card at the main
-   path's shapes: K2 on the raw streams of gemm, FeedForward and
-   k15mmtree and on the rungs it serves (both rungs of ResidualBlock, the
+   path's shapes: K2 on the raw streams of gemm, FeedForward, k15mmtree
+   and a stream of 32 MolHIV-shaped molecules through FlowGNN's PNA
+   engine (43,050 events, a cluster of 16) and on the rungs it serves (both rungs of ResidualBlock, the
    safe rungs of gemm, FeedForward and k15mmtree), on rows inside the
    routing box and rows below its floor; K1 on the aggressive rungs of
    gemm, FeedForward, k15mmseq and k15mmtree; at batches 1, 8, 37, 128
@@ -213,7 +214,10 @@ OPS_PER_EVENT_ITER = 6
 #: per certificate slot: the difference and the comparison
 OPS_PER_CERT_SLOT = 2
 
-K2_DESIGNS = ("gemm", "FeedForward", "k15mmtree")
+K2_DESIGNS = ("gemm", "FeedForward", "k15mmtree", "flowgnn_pna_stream")
+#: the seed of the flowgnn_pna_stream design: 32 MolHIV-shaped molecules,
+#: 43,050 events, so K2 runs its rows on a cluster of 16 CTAs
+FLOWGNN_STREAM_SEED = 23
 #: phase 3's mixed batches for K2's per-design-table mode; the two
 #: mult_by_2 designs come first and deadlock below depth n - 1, so rows
 #: with different bounds stop on them within 256 iterations
@@ -805,9 +809,13 @@ def main_path(dev) -> dict:
 
 # ----------------------------------------------- certification and search
 def design_of(name: str):
-    from repro_torch.designs import flowgnn_pna, make_design, mult_by_2
+    from repro_torch.designs import (flowgnn_pna, flowgnn_pna_stream,
+                                     make_design, molhiv_stream, mult_by_2)
     if name.startswith("mult_by_2("):
         return mult_by_2(int(name[len("mult_by_2("):-1]))
+    if name == "flowgnn_pna_stream":
+        return flowgnn_pna_stream(molhiv_stream(32, FLOWGNN_STREAM_SEED),
+                                  seed=FLOWGNN_STREAM_SEED)
     return flowgnn_pna() if name == "flowgnn_pna" else make_design(name)
 
 

@@ -56,6 +56,7 @@ import dataclasses
 
 import numpy as np
 
+from repro_torch import obs
 from repro_torch.core.design import READ, WRITE
 from repro_torch.core.simgraph import SimGraph
 
@@ -163,7 +164,17 @@ def _required_write_ranks(g: SimGraph) -> np.ndarray:
 
 
 def channel_bounds(g: SimGraph) -> ChannelBounds:
-    """Classify every channel and derive its ``(lower, upper)`` bounds."""
+    """Classify every channel and derive its ``(lower, upper)`` bounds.
+    Timed by the :mod:`repro_torch.obs` span ``bounds`` (``fifos``;
+    ``tight``: the channels whose lower bound is their upper)."""
+    with obs.span("bounds", fifos=g.n_fifos) as span:
+        out = _channel_bounds(g)
+        if span:
+            span.set(tight=int(np.sum(out.lower == out.upper)))
+    return out
+
+
+def _channel_bounds(g: SimGraph) -> ChannelBounds:
     F = g.n_fifos
     need = _required_write_ranks(g)
     task_of = _event_tasks(g)

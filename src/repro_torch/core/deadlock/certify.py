@@ -42,6 +42,7 @@ from typing import Optional
 
 import numpy as np
 
+from repro_torch import obs
 from repro_torch.core.backends import ConfigCache
 from repro_torch.core.design import Design
 from repro_torch.core.oracle import simulate
@@ -113,7 +114,21 @@ def _coordinate_descent(g: SimGraph, probe,
     it is jointly feasible — by monotonicity, descending coordinate-wise
     from any feasible ``cur >= floor`` with per-coordinate minima at or
     above ``floor`` can only land exactly on ``floor``.
+
+    Timed by the :mod:`repro_torch.obs` span ``certify``: ``probes``
+    (cache misses), ``cache_hits`` and ``pinned`` (FIFOs certified above
+    depth 1).
     """
+    with obs.span("certify") as span:
+        res = _descend(g, probe, upper, lower, bounds)
+        if span:
+            span.set(probes=res.n_probes, cache_hits=res.n_cache_hits,
+                     pinned=int(np.sum(res.depths > 1)))
+    return res
+
+
+def _descend(g: SimGraph, probe, upper: Optional[np.ndarray],
+             lower: Optional[np.ndarray], bounds=None) -> CertificationResult:
     t0 = time.perf_counter()
     F = g.n_fifos
     start = (np.asarray(upper, dtype=np.int64) if upper is not None

@@ -28,6 +28,7 @@ from typing import Dict, List, Tuple
 
 import numpy as np
 
+from repro_torch import obs
 from repro_torch.core.design import READ, WRITE
 from repro_torch.core.simgraph import SimGraph
 
@@ -100,7 +101,14 @@ def local_lower_bounds(g: SimGraph,
                        candidates: List[np.ndarray]) -> np.ndarray:
     """Per-FIFO minimal candidate depth that is pair-feasible with all
     sibling FIFOs at their largest candidates.  Returns (n_fifos,) depths
-    (2 where no pruning applies)."""
+    (2 where no pruning applies).  Timed by the :mod:`repro_torch.obs`
+    span ``local_bounds`` (``fifos``)."""
+    with obs.span("local_bounds", fifos=g.n_fifos):
+        return _local_lower_bounds(g, candidates)
+
+
+def _local_lower_bounds(g: SimGraph,
+                        candidates: List[np.ndarray]) -> np.ndarray:
     out = np.full(g.n_fifos, 2, dtype=np.int64)
     for pair, fifos in task_pairs(g).items():
         if len(fifos) < 2:

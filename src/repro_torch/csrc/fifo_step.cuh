@@ -31,7 +31,7 @@ namespace fifo {
 constexpr float NEG = -1e9f;
 constexpr unsigned FULL = 0xffffffffu;
 constexpr int MAX_THREADS = 1024;
-constexpr int MAX_E_PAD = 32768;          // K2: 8 CTAs x 4096 events
+constexpr int MAX_E_PAD = 65536;          // K2: 16 CTAs x 4096 events
 
 // Scratch for the block-wide scan (static shared memory).
 struct Scratch {

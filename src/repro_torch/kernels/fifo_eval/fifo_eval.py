@@ -47,8 +47,9 @@ from repro_torch.kernels.fifo_eval import build
 from repro_torch.kernels.fifo_eval.ref import (fifo_eval_plain,
                                                fifo_eval_ref_hetero)
 
-#: largest padded event count the kernel takes (8 CTAs x 4096 events)
-MAX_E_PAD = 32768
+#: largest padded event count the kernel takes (16 CTAs x 4096 events:
+#: beyond 32768 a row needs a cluster of 16, where the card allows one)
+MAX_E_PAD = 65536
 OUT_LANES = 4
 
 #: events a CTA can keep in registers: 1024 threads x 4 events
@@ -103,10 +104,14 @@ def k2_cluster_sizes(e_pad: int, max_cluster: int = PORTABLE_CLUSTER
     """Every cluster size K2 can run a row of ``e_pad`` events on: a power
     of two, at least enough CTAs to hold the row's operands in registers
     (:data:`MAX_CTA_EVENTS` each), at most ``max_cluster``, and at least
-    :data:`MIN_CTA_EVENTS` events a CTA."""
+    :data:`MIN_CTA_EVENTS` events a CTA.  Raises where the row needs more
+    CTAs than ``max_cluster``."""
     if not 0 < e_pad <= MAX_E_PAD:
         raise ValueError(f"e_pad {e_pad} outside (0, {MAX_E_PAD}]")
     need = _pow2_ceil(-(-e_pad // MAX_CTA_EVENTS))
+    if need > max_cluster:
+        raise ValueError(f"e_pad {e_pad} needs a cluster of {need} CTAs; "
+                         f"at most {max_cluster} launch")
     sizes, s = [], need
     while s <= max_cluster and (s == need or e_pad >= s * MIN_CTA_EVENTS):
         sizes.append(s)

@@ -205,7 +205,8 @@ def _check_shape(c, e_pad, active, max_cluster, shape, forced=None):
 def test_k2_launch_shape_fits_every_stream(name):
     """The chooser's shape for every stream of a design and its rungs, at
     every bucket size and both cluster caps, fits the kernel; every size
-    it allows fits when forced; rows above MAX_E_PAD raise."""
+    it allows fits when forced; rows above MAX_E_PAD, or needing more
+    CTAs than the cap, raise."""
     n_checked = 0
     for e_pad in _stream_e_pads(name):
         if e_pad > MAX_E_PAD:
@@ -213,6 +214,10 @@ def test_k2_launch_shape_fits_every_stream(name):
                 k2_launch_shape(8, e_pad, ACTIVE_132)
             continue
         for max_cluster in (8, 16):
+            if e_pad > max_cluster * MAX_CTA_EVENTS:
+                with pytest.raises(ValueError):
+                    k2_launch_shape(8, e_pad, ACTIVE_132, max_cluster)
+                continue
             for c in BUCKETS:
                 _check_shape(c, e_pad, ACTIVE_132, max_cluster,
                              k2_launch_shape(c, e_pad, ACTIVE_132,
@@ -223,8 +228,7 @@ def test_k2_launch_shape_fits_every_stream(name):
                              k2_launch_shape(8, e_pad, ACTIVE_132,
                                              max_cluster, s),
                              forced=s)
-    if name != "k15mmtree_relu":         # its raw stream is 33408 events
-        assert n_checked > 0
+    assert n_checked > 0
 
 
 def test_k2_launch_shape_spreads_few_rows():
@@ -239,8 +243,12 @@ def test_k2_launch_shape_spreads_few_rows():
     assert k2_launch_shape(8, 13312, {**ACTIVE_132, 8: 7}, 16)[0] == 4
     assert k2_launch_shape(512, 26496, ACTIVE_132, 16)[0] == 8
     assert k2_launch_shape(512, 2560, ACTIVE_132, 16)[0] == 1
-    assert k2_cluster_sizes(MAX_E_PAD, 16) == (8, 16)
+    assert k2_cluster_sizes(32768, 16) == (8, 16)
+    assert k2_cluster_sizes(MAX_E_PAD, 16) == (16,)
+    assert k2_launch_shape(8, 36864, ACTIVE_132, 16)[:2] == (16, 576)
     with pytest.raises(ValueError):
         k2_launch_shape(8, 26496, ACTIVE_132, 16, cluster=4)
+    with pytest.raises(ValueError):              # a row of 33k needs 16
+        k2_launch_shape(8, 32768 + 128, ACTIVE_132, 8)
     with pytest.raises(ValueError):
-        k2_launch_shape(8, MAX_E_PAD + 128, ACTIVE_132)
+        k2_launch_shape(8, MAX_E_PAD + 128, ACTIVE_132, 16)

@@ -305,3 +305,38 @@ def test_hetero_campaign_answers_alike_and_spans_count_its_work(
     assert summ["launch.k2_hetero"]["attrs"]["rows"] == \
         c1.hetero.stats.n_rows + c1.hetero.stats.n_pad_rows
     _assert_launches(summ, recs, seen, counts)
+
+
+def _certified_advisor():
+    from repro_torch.designs import flowgnn_pna_stream, molhiv_stream
+    d = flowgnn_pna_stream(molhiv_stream(4, 5), seed=5)
+    return FifoAdvisor(d, EvalConfig(backend="cuda", local_bounds=True,
+                                     channel_bounds=True,
+                                     certified_floor=True), device="cpu")
+
+
+def test_bounds_and_certification_spans_nest_under_the_baselines():
+    obs.enable()
+    adv = _certified_advisor()
+    obs.disable()
+    recs = obs.records()
+    summ = obs.summary()
+    cert, bounds = adv.certification, adv.channel_bounds()
+    for name in ("local_bounds", "bounds", "certify"):
+        assert summ[name]["count"] == 1, name
+        (i,) = [k for k, r in enumerate(recs) if r[0] == name]
+        assert recs[recs[i][3]][0] == "construct.baselines", name
+    F = adv.graph.n_fifos
+    assert summ["local_bounds"]["attrs"] == {"fifos": F}
+    assert summ["bounds"]["attrs"] == {
+        "fifos": F, "tight": int(np.sum(bounds.lower == bounds.upper))}
+    assert summ["certify"]["attrs"] == {
+        "probes": cert.n_probes, "cache_hits": cert.n_cache_hits,
+        "pinned": int(np.sum(cert.depths > 1))}
+    assert cert.n_probes >= 1 and summ["certify"]["attrs"]["pinned"] >= 1
+
+
+def test_bounds_and_certification_record_nothing_while_off():
+    adv = _certified_advisor()
+    assert adv.certification is not None
+    assert obs.records() == []
