@@ -8,7 +8,7 @@ NVIDIA GPU and check it.
 Phases, each printing JSON lines (any failure raises and exits nonzero):
 
 1. the card: ``nvidia-smi`` name and power limit, torch and CUDA versions;
-2. the build: both CUDA kernels compiled with nvcc from ``src/repro_torch/
+2. the build: the CUDA kernels compiled with nvcc from ``src/repro_torch/
    csrc`` (seconds, registers and spills from ptxas);
 3. each kernel against its plain torch version on the card at the main
    path's shapes: K2 on the raw streams of gemm, FeedForward, k15mmtree
@@ -28,7 +28,15 @@ Phases, each printing JSON lines (any failure raises and exits nonzero):
    ``mult_by_2(24)``, gemm, FeedForward, k15mmtree and ResidualBlock rows
    (1, 8, 37 and 128 rows) against the plain ``fifo_eval_ref_hetero``, at
    the chooser's cluster and every allowed size; at max_iters 256 rows of
-   two designs (one in a 1-row batch) must stop on their own bound;
+   two designs (one in a 1-row batch) must stop on their own bound; the
+   two kernels around K2 and K1 (``csrc/launch_ops.cu``) against their
+   plain versions, bit for bit: the depth-operand kernel against
+   ``depth_operands_plain`` and the epilogue kernel against
+   ``eval_epilogue_plain`` (on K2's output, and on K1's where the rung
+   has certificate slots) on k15mmtree's raw stream and both rungs, the
+   FlowGNN stream's 43,136-event row and a design whose rows deadlock
+   structurally, at 1, 4 and 8 rows on the SRL/BRAM edges, below the
+   box's floor and inside it;
 4. the main path: ``FifoAdvisor(design, EvalConfig(backend="cuda")).run(
    "grouped_sa", budget=1000, seed=0)`` on gemm, FeedForward and
    k15mmtree, whose history, frontier and hypervolume must equal the
@@ -37,7 +45,9 @@ Phases, each printing JSON lines (any failure raises and exits nonzero):
    ``n_cond_fail``, ``n_fallbacks``) against the plain ``fixpoint``
    backend's on the card; every launch counter is set to 0 just before
    and read just after, and both kernels must have launched (K2's
-   launches also by cluster size, K1's by rows per launch);
+   launches also by cluster size, K1's by rows per launch), each K2 and
+   K1 launch with one launch of the depth-operand and one of the
+   epilogue kernel;
 5. certification and search: on gemm, FeedForward, k15mmtree and
    ``flowgnn_pna()``, ``FifoAdvisor(design, EvalConfig(backend="cuda",
    local_bounds=True, channel_bounds=True, certified_floor=True))`` —
@@ -85,7 +95,11 @@ Phases, each printing JSON lines (any failure raises and exits nonzero):
    how many clusters of each allowed size the card holds at once.  K1 as
    a CUDA graph of 20 launches (no host overhead) at the main path's 1
    and 8 rows and at the 512-row bucket, each also at max_iters 1 (the
-   difference is the iterations after the first);
+   difference is the iterations after the first).  The depth-operand and
+   epilogue kernels as CUDA graphs beside their bounds and their plain
+   versions at k15mmtree's 1, 4 and 8 rows and the FlowGNN row, and the
+   K2 closure's wall a call (one wait each) against the same call made of
+   the plain versions with pageable copies, in turns;
 9. where the time goes: phase 6's hetero campaign, phase 10's hetero
    service, and on k15mmtree a fresh ``grouped_sa`` run, unseeded
    certification and ``vmap_search``, under ``torch.profiler`` (device
@@ -242,6 +256,15 @@ MAIN_SHAPE_DESIGNS = ("FeedForward", "k15mmtree")
 K1_MAIN_ROWS = (1, 8)
 #: launches per CUDA graph when a kernel is timed without host overhead
 GRAPH_REPS = 20
+#: the kernels around K2 and K1 (``csrc/launch_ops.cu``): k15mmtree's raw
+#: stream and its rungs at the main path's 1, 4 and 8 rows, the FlowGNN
+#: stream's 43,136-event row, and a design that deadlocks structurally
+LAUNCH_OPS_STREAMS = (("k15mmtree", None), ("k15mmtree", "aggressive"),
+                      ("k15mmtree", "safe"), ("flowgnn_pna_stream", None),
+                      ("leftover", None))
+LAUNCH_OPS_BATCHES = (1, 4, 8)
+#: calls of the K2 closure timed per shape (each call waits for its answer)
+CLOSURE_CALLS = 50
 BUDGET = 1000
 #: phase 5: the designs, the optimizers and the pruning flags
 CERT_DESIGNS = ("gemm", "FeedForward", "k15mmtree", "flowgnn_pna")
@@ -666,9 +689,206 @@ def check_k2_hetero(dev, cmp: Compare) -> None:
                       "max_iters_run": int(out[:, 3].max())})
 
 
+# ---------------------------------------------- the kernels around K2 and K1
+def leftover_design():
+    """One FIFO written 6 times and read twice beside a balanced one: a
+    row whose first depth is below 4 deadlocks structurally."""
+    from repro_torch.core.design import Design
+    d = Design("leftover")
+    d.fifo("x")
+    d.fifo("y", width=64)
+
+    @d.task("w")
+    def w(ctx):
+        for i in range(6):
+            yield ctx.write("x", i)
+            yield ctx.write("y", i)
+
+    @d.task("r")
+    def r(ctx):
+        for _ in range(2):
+            yield ctx.read("x")
+        for _ in range(6):
+            yield ctx.read("y")
+    return d
+
+
+def edge_rows(g, c: int, seed: int):
+    """``c`` depth rows on the edges of the SRL/BRAM rule: 1, SRL_DEPTH,
+    SRL_DEPTH + 1, the deepest shift register of each FIFO's width (depth
+    x width at SRL_BITS where the width divides it) and one deeper, then
+    rows below the routing box's floor."""
+    import numpy as np
+    from repro_torch.core.bram import SRL_BITS, SRL_DEPTH
+    u = np.asarray(g.upper_bounds, dtype=np.int64)
+    srl = np.maximum(1, SRL_BITS // np.asarray(g.widths, dtype=np.int64))
+    rows = np.stack([np.ones_like(u), np.full_like(u, SRL_DEPTH),
+                     np.full_like(u, SRL_DEPTH + 1), srl, srl + 1])
+    rows = np.concatenate([rows, low_rows(g, max(c, 5), seed)])
+    return rows[:c].astype(np.int32)
+
+
+def launch_ops_streams():
+    """(label, graph) of :data:`LAUNCH_OPS_STREAMS`."""
+    from repro_torch.core.simgraph import build_simgraph
+    for name, tag in LAUNCH_OPS_STREAMS:
+        if name == "leftover":
+            yield name, build_simgraph(leftover_design())
+        elif tag is None:
+            yield name, raw_graph(name)
+        else:
+            yield f"{name}/{tag}", rung(name, tag)
+
+
+def launch_ops_inputs(g, rows, dev):
+    """The operand kernel's answer for ``rows`` on ``dev``, and the
+    outputs of K2 (and of K1 where the graph has certificate slots) on
+    those operands: (ops, depths, operands, [out, ...])."""
+    import torch
+    from repro_torch.core.backends import operands as O
+    from repro_torch.kernels.fifo_eval import launch_ops as L
+    from repro_torch.kernels.fifo_eval.condensed import (K1_MAX_E_PAD,
+                                                         fifo_eval_condensed)
+    from repro_torch.kernels.fifo_eval.fifo_eval import fifo_eval
+    ops = O.get_operands(g, dev)
+    d = torch.as_tensor(rows, device=dev)
+    got = L.depth_operands_device(ops, d)
+    shared = (ops.delta, ops.seg_start, ops.is_read, ops.has_data,
+              ops.data_idx, ops.end_bonus) + got[:4]
+    outs = [fifo_eval(*shared, max_iters=256, bound=ops.bound)[0]]
+    ct = O.get_cert_tables(g, dev) if hasattr(g, "cond_of") else None
+    if ct is not None and ops.e_pad <= K1_MAX_E_PAD:
+        outs.append(fifo_eval_condensed(
+            *shared, *O.cert_row_operands(ops, ct, d), max_iters=256,
+            bound=ops.bound)[0])
+    return ops, d, got, outs
+
+
+def check_launch_ops(dev, cmp: Compare) -> None:
+    """The depth-operand kernel against ``depth_operands_plain`` and the
+    epilogue kernel against ``eval_epilogue_plain``, bit for bit, on the
+    card, on rows at the SRL/BRAM edges, below the box's floor and inside
+    it; the structural rows of the leftover design must be flagged."""
+    from repro_torch.core.backends import operands as O
+    from repro_torch.kernels.fifo_eval import launch_ops as L
+    import torch
+    names = ("rd_lat_e", "bp_idx", "bp_valid", "bp_base", "structural")
+    for label, g in launch_ops_streams():
+        structural = 0
+        for c in LAUNCH_OPS_BATCHES:
+            for rows_of in (edge_rows, low_rows, box_rows):
+                rows = rows_of(g, c, seed=c)
+                ops, d, got, outs = launch_ops_inputs(g, rows, dev)
+                want = O.depth_operands_plain(ops, d)
+                torch.cuda.synchronize()
+                what = f"{label} {rows_of.__name__} C={c}"
+                for n, a, b in zip(names, got, want):
+                    cmp.same("depth_operands", f"{what} {n}", a, b)
+                structural += int(got[4].sum())
+                for out in outs:
+                    packed = L.eval_epilogue(out, got[4], d, ops.widths,
+                                             ops.taskless_lat)
+                    plain = L.eval_epilogue_plain(out, got[4], d, ops.widths,
+                                                  ops.taskless_lat)
+                    torch.cuda.synchronize()
+                    cmp.same("eval_epilogue", f"{what} lanes "
+                             f"{out.shape[1]}", packed, plain)
+                emit({"phase": "check", "kernel": "depth_operands+"
+                      "eval_epilogue", "stream": label,
+                      "rows_of": rows_of.__name__, "rows": c,
+                      "e_pad": ops.e_pad, "fifos": ops.n_fifos,
+                      "outputs": [o.shape[1] for o in outs],
+                      "structural": int(got[4].sum()), "equal": True})
+        if label == "leftover" and not structural:
+            raise AssertionError("no leftover row deadlocked structurally")
+
+
+def time_launch_ops(dev) -> dict:
+    """Each kernel around K2 as a CUDA graph (no host overhead) beside its
+    bound and its plain version's time, at the main path's shapes; then
+    the K2 closure's wall a call (one wait each, host work in) against the
+    same call made of the plain versions with pageable copies, as every
+    call was made before these kernels."""
+    import numpy as np
+    import torch
+    from repro_torch.core.backends import operands as O
+    from repro_torch.kernels.fifo_eval import launch_ops as L
+    from repro_torch.kernels.fifo_eval.fifo_eval import fifo_eval
+    from repro_torch.kernels.fifo_eval.ops import make_batched_eval
+    rows_out = {"depth_operands": [], "eval_epilogue": [], "closure": []}
+    cases = [("k15mmtree", raw_graph("k15mmtree"), c)
+             for c in LAUNCH_OPS_BATCHES]
+    cases.append(("flowgnn_pna_stream", raw_graph("flowgnn_pna_stream"), 1))
+    for label, g, c in cases:
+        rows = low_rows(g, c, seed=0)
+        ops, d, got, outs = launch_ops_inputs(g, rows, dev)
+        C, F, E, R = c, ops.n_fifos, ops.e_pad, ops.n_flat_reads
+        # read once: depths, widths, five 4-byte tables and is_write an
+        # event, the read tables; written once: four (C, E) operands and
+        # the flags
+        n_bytes = 4 * (C * F + F) + 21 * E + 8 * R + 16 * C * E + C
+        ms = graph_ms(lambda: L.depth_operands_device(ops, d))
+        plain = cuda_ms(lambda: O.depth_operands_plain(ops, d), reps=20)
+        rows_out["depth_operands"].append(
+            {"design": label, "rows": C, "e_pad": E, "fifos": F, "ms": ms,
+             "plain_ms": plain, "bound_ms": n_bytes / HBM_BYTES_PER_S * 1e3,
+             "bound_by": "bytes"})
+        emit({"phase": "time", "kernel": "depth_operands",
+              **rows_out["depth_operands"][-1]})
+        out = outs[0]
+        n_bytes = 4 * (2 * C * 4 + C * F + F) + C
+        ms = graph_ms(lambda: L.eval_epilogue(out, got[4], d, ops.widths,
+                                              ops.taskless_lat))
+        plain = cuda_ms(lambda: L.eval_epilogue_plain(
+            out, got[4], d, ops.widths, ops.taskless_lat), reps=20)
+        rows_out["eval_epilogue"].append(
+            {"design": label, "rows": C, "fifos": F, "ms": ms,
+             "plain_ms": plain, "bound_ms": n_bytes / HBM_BYTES_PER_S * 1e3,
+             "bound_by": "bytes"})
+        emit({"phase": "time", "kernel": "eval_epilogue",
+              **rows_out["eval_epilogue"][-1]})
+
+        def before(m):
+            d = torch.as_tensor(np.asarray(m, dtype=np.int32), device=dev)
+            rd, bpi, bpv, bpb, structural = O.depth_operands_plain(ops, d)
+            o, _ = fifo_eval(ops.delta, ops.seg_start, ops.is_read,
+                             ops.has_data, ops.data_idx, ops.end_bonus, rd,
+                             bpi, bpv, bpb, max_iters=64, bound=ops.bound)
+            lat = torch.clamp(o[:, 0], min=ops.taskless_lat)
+            bram = O.bram_count_torch(d, ops.widths[None, :]).sum(
+                dim=1, dtype=torch.int32)
+            res = (lat, bram, L._status(o, structural), o[:, 3])
+            return tuple(x.cpu().numpy() for x in res)
+        call = make_batched_eval(g, max_iters=64, device=dev)
+        got_call, want_call = call(rows), before(rows)
+        for a, b in zip(got_call, want_call):
+            if a.dtype != b.dtype or not np.array_equal(a, b):
+                raise AssertionError(f"{label} C={c}: the K2 closure "
+                                     f"differs from the plain path")
+        walls = {}
+        for name, fn in (("before", before), ("closure", call),
+                         ("closure_again", call), ("before_again", before)):
+            fn(rows)
+            t0 = time.perf_counter()
+            for _ in range(CLOSURE_CALLS):
+                fn(rows)
+            walls[name] = (time.perf_counter() - t0) / CLOSURE_CALLS * 1e6
+        k2_ms = cuda_ms(lambda: fifo_eval(
+            ops.delta, ops.seg_start, ops.is_read, ops.has_data,
+            ops.data_idx, ops.end_bonus, *got[:4], max_iters=64,
+            bound=ops.bound), reps=20)
+        rows_out["closure"].append(
+            {"design": label, "rows": C, "max_iters": 64,
+             "us_per_call": walls, "k2_us": k2_ms * 1e3})
+        emit({"phase": "time", "kernel": "k2_closure",
+              **rows_out["closure"][-1]})
+    return rows_out
+
+
 # --------------------------------------------------------------- main path
 def reset_counts():
-    from repro_torch.kernels.fifo_eval import condensed, fifo_eval, ops
+    from repro_torch.kernels.fifo_eval import (condensed, fifo_eval,
+                                               launch_ops, ops)
     fifo_eval.fifo_eval.launches = 0
     fifo_eval.fifo_eval.clusters = {}
     fifo_eval.fifo_eval.rows = {}
@@ -677,11 +897,14 @@ def reset_counts():
     fifo_eval.fifo_eval_hetero.rows = {}
     condensed.fifo_eval_condensed.launches = 0
     condensed.fifo_eval_condensed.rows = {}
+    launch_ops.depth_operands_device.launches = 0
+    launch_ops.eval_epilogue.launches = 0
     ops.DISPATCH_COUNTS.clear()
 
 
 def read_counts() -> dict:
-    from repro_torch.kernels.fifo_eval import condensed, fifo_eval, ops
+    from repro_torch.kernels.fifo_eval import (condensed, fifo_eval,
+                                               launch_ops, ops)
     return {"fifo_eval": fifo_eval.fifo_eval.launches,
             "fifo_eval_clusters": dict(fifo_eval.fifo_eval.clusters),
             "fifo_eval_rows": dict(fifo_eval.fifo_eval.rows),
@@ -693,6 +916,8 @@ def read_counts() -> dict:
                 condensed.fifo_eval_condensed.launches,
             "fifo_eval_condensed_rows":
                 dict(condensed.fifo_eval_condensed.rows),
+            "depth_operands": launch_ops.depth_operands_device.launches,
+            "eval_epilogue": launch_ops.eval_epilogue.launches,
             "dispatch": dict(ops.DISPATCH_COUNTS)}
 
 
@@ -702,7 +927,8 @@ def main_path(dev) -> dict:
     from repro_torch.core import BatchedEvaluator, EvalConfig, FifoAdvisor
     from repro_torch.core.simgraph import build_simgraph
     from repro_torch.designs import make_design
-    totals = {"fifo_eval": 0, "fifo_eval_condensed": 0}
+    totals = {"fifo_eval": 0, "fifo_eval_condensed": 0, "depth_operands": 0,
+              "eval_epilogue": 0}
     k1_rows = {}
     for name in MAIN_DESIGNS:
         reset_counts()
@@ -738,8 +964,7 @@ def main_path(dev) -> dict:
               "frontier_points": res.frontier_points.tolist(),
               "hypervolume": res.hypervolume(),
               "equal_to_numpy": True,
-              "launches": {k: counts[k] for k in
-                           ("fifo_eval", "fifo_eval_condensed")},
+              "launches": {k: counts[k] for k in totals},
               "fifo_eval_launches_by_cluster":
                   counts["fifo_eval_clusters"],
               "fifo_eval_condensed_launches_by_rows":
@@ -802,6 +1027,13 @@ def main_path(dev) -> dict:
     for k, n in totals.items():
         if n == 0:
             raise AssertionError(f"main path never launched {k}")
+    # every K2 and K1 launch of the main path is a closure's: its operands
+    # from the depth-operand kernel, its answer from the epilogue kernel
+    kernels = totals["fifo_eval"] + totals["fifo_eval_condensed"]
+    if not totals["depth_operands"] == totals["eval_epilogue"] == kernels:
+        raise AssertionError(f"main path: {totals} launches; each K2 and "
+                             f"K1 launch must come with one of each kernel "
+                             f"around it")
     emit({"phase": "main_path_launches", **totals,
           "fifo_eval_condensed_rows_by_design": k1_rows})
     return totals, k1_rows
@@ -2630,6 +2862,7 @@ def run() -> int:
     check_k2(dev, cmp)
     check_k2_hetero(dev, cmp)
     check_k1(dev, cmp)
+    check_launch_ops(dev, cmp)
     emit({"phase": "checks_done", "seconds":
           round(time.perf_counter() - t0, 3), "max_abs_err": cmp.err})
 
@@ -2681,6 +2914,7 @@ def run() -> int:
     t0 = time.perf_counter()
     times = timings(dev)
     hetero_times = time_k2_hetero(dev, campaign)
+    around = time_launch_ops(dev)
     emit({"phase": "times_done",
           "seconds": round(time.perf_counter() - t0, 3)})
     t0 = time.perf_counter()
@@ -2767,6 +3001,19 @@ def run() -> int:
             "shape": {k: worst[k] for k in ("design", "rows", "e_pad")},
             "library_note": "no single PyTorch call computes a segmented "
                             "max-plus fixpoint", **extra})
+    # the two kernels around K2 and K1: launches on the main path, their
+    # times at its shapes, and the K2 closure's wall a call
+    for name in ("depth_operands", "eval_epilogue"):
+        worst = max(around[name], key=lambda r: r["ms"])
+        kernels.append({
+            "name": name, "route": "cuda",
+            "source": "src/repro_torch/csrc/launch_ops.cu",
+            "replaces": None, "launches": launches[name],
+            "max_abs_err": cmp.err.get(name, 0.0), "ms": worst["ms"],
+            "plain_ms": worst["plain_ms"], "bound_ms": worst["bound_ms"],
+            "bound_by": worst["bound_by"], "library_ms": None,
+            "shape": {k: worst[k] for k in ("design", "rows")},
+            "shapes": around[name], "closure": around["closure"]})
     emit({"kernels": kernels})
     emit({"phase": "done", "seconds": round(time.perf_counter() - t_start,
                                             3)})

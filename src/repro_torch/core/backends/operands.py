@@ -11,7 +11,9 @@
 ``depth_operands``
     The depth-DEPENDENT operands for a batch of candidate configurations:
     per-event read latencies, back-pressure gather indices/masks, and the
-    structural-deadlock flag.  Plain torch ops on the operands' device.
+    structural-deadlock flag.  One kernel launch on a CUDA device
+    (``csrc/launch_ops.cu``), plain torch ops (``depth_operands_plain``)
+    on the CPU.
 
 ``CertTables`` / ``cert_row_operands``
     The fused exactness certificate's slots on a condensed graph (see the
@@ -432,7 +434,24 @@ def hetero_depth_operands(tables: HeteroTables, table_of_row: torch.Tensor,
 def depth_operands(ops: GraphOperands, depths: torch.Tensor
                    ) -> Tuple[torch.Tensor, torch.Tensor, torch.Tensor,
                               torch.Tensor, torch.Tensor]:
-    """Depth-dependent per-config operands.
+    """Depth-dependent per-config operands (see
+    :func:`depth_operands_plain`): one launch of the depth-operand kernel
+    (:func:`repro_torch.kernels.fifo_eval.launch_ops.depth_operands_device`)
+    on CUDA tensors, :func:`depth_operands_plain` on CPU tensors."""
+    if depths.device.type == "cuda":
+        from repro_torch.kernels.fifo_eval.launch_ops import \
+            depth_operands_device
+        return depth_operands_device(ops, depths)
+    if depths.device.type != "cpu":
+        raise ValueError(f"depth_operands runs on cuda or cpu tensors, not "
+                         f"{depths.device}")
+    return depth_operands_plain(ops, depths)
+
+
+def depth_operands_plain(ops: GraphOperands, depths: torch.Tensor
+                         ) -> Tuple[torch.Tensor, torch.Tensor, torch.Tensor,
+                                    torch.Tensor, torch.Tensor]:
+    """Depth-dependent per-config operands, in plain torch ops.
 
     depths: (C, F) integer tensor on the operands' device.  Returns
 

@@ -4,6 +4,9 @@
 ``condensed.py``  K1 wrapper: fused condensed fixpoint + certificate
                   (``csrc/condensed.cu``).
 ``ref.py``        plain torch versions of both, with identical results.
+``launch_ops.py`` the depth-operand and epilogue kernels around each K2
+                  and K1 launch (``csrc/launch_ops.cu``), beside their
+                  plain versions.
 ``ops.py``        closures: SimGraph -> padded event tensors -> kernel.
 ``build.py``      nvcc build and ctypes loading of the kernel library.
 

@@ -31,7 +31,7 @@ from pathlib import Path
 from typing import List, Optional
 
 CSRC = Path(__file__).resolve().parents[2] / "csrc"
-SOURCES = ("fifo_eval.cu", "condensed.cu")
+SOURCES = ("fifo_eval.cu", "condensed.cu", "launch_ops.cu")
 HEADERS = ("fifo_step.cuh",)
 NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
               "-O3", "-Xcompiler", "-fPIC")
@@ -44,6 +44,8 @@ SIGNATURES = {
     "fifo_eval_condensed_launch": [_P] * 16 + [_I, _I, _I, _I, _F]
                                   + [_I] * 3 + [_P],
     "fifo_eval_condensed_active": [_I] * 5,
+    "depth_operands_launch": [_P] * 15 + [_I] * 4 + [_P],
+    "eval_epilogue_launch": [_P] * 5 + [_I] * 3 + [_F, _P],
 }
 
 _lock = threading.Lock()

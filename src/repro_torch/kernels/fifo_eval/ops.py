@@ -4,8 +4,10 @@ Consumes the shared padded event tensors from
 :mod:`repro_torch.core.backends.operands` (built once per graph and device)
 and exposes callables ``(C, F) int depths -> numpy results``.  The
 depth-dependent per-config operands come from the shared
-:func:`~repro_torch.core.backends.operands.depth_operands`; only the
-fixpoint differs between inners:
+:func:`~repro_torch.core.backends.operands.depth_operands`, and the
+results from :func:`~repro_torch.kernels.fifo_eval.launch_ops
+.eval_epilogue`, one packed (C, lanes) int32 array; only the fixpoint
+differs between inners:
 
 ``use_ref=False``  K2, :func:`repro_torch.kernels.fifo_eval.fifo_eval
                    .fifo_eval` (the CUDA kernel on CUDA tensors, its plain
@@ -17,13 +19,23 @@ fixpoint differs between inners:
 graphs in one K2 launch in its per-design-table mode (the plain
 ``fifo_eval_ref_hetero`` on the CPU).
 
+On a lone CUDA device a K2 or K1 call is a fixed sequence: one pinned
+copy of the depth rows up, the depth-operand kernel, the fixpoint kernel,
+the epilogue kernel, one pinned copy of the packed result back, and one
+wait (:class:`_Staging`); the CPU runs the plain versions of the same
+steps.
+
 Each closure takes ``mesh=`` (:mod:`repro_torch.launch.mesh`): the rows
 are then split into contiguous blocks, one per shard, and every shard
-launches its own kernel on its device (:func:`_shard_over_rows`).
+launches its own kernel on its device (:func:`_shard_over_rows`), with
+pageable copies and one readback a shard.
 
 Each call is one :mod:`repro_torch.obs` span, ``launch.k2``, ``launch.k1``
 or ``launch.k2_hetero`` (``rows``: the rows launched, padding included;
-``iters``: the iterations they ran, summed), around the whole host path.
+``iters``: the iterations they ran, summed; on ``launch.k2`` and
+``launch.k1``, ``device_operands``: 1 where the depth-operand kernel built
+the launch's operands, read from its launch count), around the whole host
+path.
 Its children are ``launch.operands`` (the depth-dependent operands),
 ``launch.kernel`` (the kernel call, which enqueues it on a CUDA device)
 and ``launch.readback`` (the copy to the host, which waits for the
@@ -40,8 +52,7 @@ import numpy as np
 import torch
 
 from repro_torch import obs
-from repro_torch.core.backends.base import (CONVERGED, DEADLOCK, UNRESOLVED,
-                                            resolve_device)
+from repro_torch.core.backends.base import resolve_device
 from repro_torch.core.backends.operands import (HeteroTables,
                                                 bram_count_torch,
                                                 cert_row_operands,
@@ -52,6 +63,9 @@ from repro_torch.core.backends.operands import (HeteroTables,
 from repro_torch.kernels.fifo_eval.condensed import fifo_eval_condensed
 from repro_torch.kernels.fifo_eval.fifo_eval import (fifo_eval,
                                                      fifo_eval_hetero)
+from repro_torch.kernels.fifo_eval.launch_ops import (_status,
+                                                      depth_operands_device,
+                                                      eval_epilogue, unpack)
 from repro_torch.kernels.fifo_eval.ref import fifo_eval_plain
 
 #: dispatches per closure kind ("batched" / "hetero" / "condensed").  The
@@ -61,18 +75,6 @@ from repro_torch.kernels.fifo_eval.ref import fifo_eval_plain
 DISPATCH_COUNTS: Counter = Counter()
 #: the output lane that holds the iterations a row ran
 ITERS_LANE = 3
-
-
-def _status(out: torch.Tensor, structural: torch.Tensor) -> torch.Tensor:
-    """DEADLOCK on structural deadlock or over the bound, else CONVERGED
-    or UNRESOLVED (int8)."""
-    conv = out[:, 1] > 0
-    over = out[:, 2] > 0
-    dead = torch.full_like(structural, DEADLOCK, dtype=torch.int8)
-    return torch.where(
-        structural | over, dead,
-        torch.where(conv, torch.full_like(dead, CONVERGED),
-                    torch.full_like(dead, UNRESOLVED)))
 
 
 def _numpy(*xs) -> Tuple[np.ndarray, ...]:
@@ -136,15 +138,81 @@ def _over(run: Callable, device, mesh, kind: str) -> Callable:
     return call
 
 
-def _launch(name: str, go: Callable, *row_arrays, **fixed) -> tuple:
+class _Staging:
+    """Pinned host buffers of one closure on one CUDA device: the depth
+    rows go up from one and the packed results come back into the other,
+    each grown to the largest batch seen.  A call's readback waits for the
+    stream, so the next call finds both buffers free; a closure is called
+    from one thread at a time (the service is one asyncio loop)."""
+
+    def __init__(self, dev: torch.device):
+        self.dev = dev
+        self._rows: Optional[torch.Tensor] = None
+        self._packed: Optional[torch.Tensor] = None
+
+    @staticmethod
+    def _grown(buf: Optional[torch.Tensor], shape) -> torch.Tensor:
+        if buf is None or buf.shape[0] < shape[0] or \
+                buf.shape[1:] != shape[1:]:
+            buf = torch.empty(shape, dtype=torch.int32, pin_memory=True)
+        return buf
+
+    def upload(self, a: np.ndarray, dev: torch.device) -> torch.Tensor:
+        """The (C, F) rows as int32 on the device (cast as
+        :func:`_rows` casts), copied without a wait."""
+        self._rows = self._grown(self._rows, a.shape)
+        buf = self._rows[:a.shape[0]]
+        buf.numpy()[...] = a
+        return buf.to(dev, non_blocking=True)
+
+    def readback(self, packed: torch.Tensor,
+                 times: Optional[torch.Tensor] = None
+                 ) -> Tuple[np.ndarray, Optional[np.ndarray]]:
+        """The packed result (and the times, pageable) on the host after
+        one wait: ``(packed, times)`` as numpy arrays of their own."""
+        with obs.span("launch.readback"):
+            self._packed = self._grown(self._packed, tuple(packed.shape))
+            host = self._packed[:packed.shape[0]]
+            host.copy_(packed, non_blocking=True)
+            t = None if times is None else times.cpu().numpy()
+            torch.cuda.current_stream(self.dev).synchronize()
+            return host.numpy().copy(), t
+
+
+def _packed_over(run: Callable, answer: Callable, device, mesh,
+                 kind: str) -> Callable:
+    """The K2 and K1 closures' ``go(depth_matrix, iters=False)``:
+    ``run(dev, depth_matrix, upload)`` returns the device tensors
+    ``(packed[, times])``, ``answer(packed, times=None, iters=...)`` the
+    closure's tuple from them as numpy.  On a lone CUDA device through a
+    :class:`_Staging`; over a mesh or on the CPU as :func:`_over` runs it,
+    with :func:`_rows`."""
+    dev = None if mesh is not None else resolve_device(device)
+    if dev is None or dev.type != "cuda":
+        inner = _over(lambda d, a: run(d, a, _rows), device, mesh, kind)
+        return lambda a, iters=False: answer(*inner(a), iters=iters)
+    staging = _Staging(dev)
+    return lambda a, iters=False: answer(
+        *staging.readback(*run(dev, a, staging.upload)), iters=iters)
+
+
+def _launch(name: str, go: Callable, *row_arrays, operand_builds: int = 0,
+            **fixed) -> tuple:
     """``go(*row_arrays, **fixed)`` in the span ``name``; while it
     records, ``go`` also returns the iteration lane, which is summed into
-    the span's ``iters`` (it rides the same copy back, no extra wait)."""
+    the span's ``iters`` (it rides the same copy back, no extra wait).  A
+    call that builds depth operands ``operand_builds`` times (once a
+    shard) sets the span's ``device_operands`` to 1 where the
+    depth-operand kernel launched for each of them, else 0."""
     with obs.span(name, rows=int(row_arrays[-1].shape[0])) as s:
         if not s:
             return go(*row_arrays, **fixed)
+        before = depth_operands_device.launches
         *res, iters = go(*row_arrays, iters=True, **fixed)
         s.set(iters=int(iters.astype(np.int64).sum()))
+        if operand_builds:
+            built = depth_operands_device.launches - before
+            s.set(device_operands=int(built == operand_builds))
         return tuple(res)
 
 
@@ -157,20 +225,21 @@ def make_batched_eval(g, use_ref: bool = False, max_iters: int = 64,
     ``call(depths) -> (lat f32, bram i32, status i8)`` as numpy arrays,
     plus the (C, E_pad) final times (f32) with ``with_times``; without
     ``with_bram`` (the escalation tier, which reads no BRAM count)
-    ``(lat, status)``.
+    ``(lat, status)``, the count computed by the epilogue all the same.
     ``device=None`` means ``cuda``.  ``mesh`` (a
     :class:`repro_torch.launch.mesh.Mesh`) shards the rows over its
     devices instead, the operands copied once to each distinct device; the
     row count must then be a multiple of ``mesh.size``.
     """
     max_iters = int(max_iters)
-    opses = {d: get_operands(g, d) for d in _devices(device, mesh)}
+    devs = _devices(device, mesh)
+    opses = {d: get_operands(g, d) for d in devs}
     inner = fifo_eval_plain if use_ref else fifo_eval
 
-    def run(dev, depth_matrix, iters=False):
+    def run(dev, depth_matrix, upload):
         ops = opses[dev]
         with obs.span("launch.operands"):
-            depths = _rows(depth_matrix, dev)
+            depths = upload(depth_matrix, dev)
             rd_lat_e, bp_idx, bp_valid, bp_base, structural = \
                 depth_operands(ops, depths)
         with obs.span("launch.kernel"):
@@ -179,22 +248,23 @@ def make_batched_eval(g, use_ref: bool = False, max_iters: int = 64,
                                rd_lat_e, bp_idx, bp_valid, bp_base,
                                max_iters=max_iters, bound=ops.bound,
                                with_times=with_times)
-        lat = torch.clamp(out[:, 0], min=ops.taskless_lat)
-        status = _status(out, structural)
-        bram = (bram_count_torch(depths, ops.widths[None, :]).sum(
-            dim=1, dtype=torch.int32),) if with_bram else ()
-        res = (lat, *bram, status)
+        packed = eval_epilogue(out, structural, depths, ops.widths,
+                               ops.taskless_lat)
+        return (packed, times) if with_times else (packed,)
+
+    def answer(packed, times=None, iters=False):
+        lat, bram, status, it, _ = unpack(packed)
+        res = (lat, bram, status) if with_bram else (lat, status)
         if with_times:
             res += (times,)
-        if iters:
-            res += (out[:, ITERS_LANE],)
-        return res
+        return res + (it,) if iters else res
 
-    go = _over(run, device, mesh, "batched")
+    go = _packed_over(run, answer, device, mesh, "batched")
+    builds = 1 if mesh is None else len(mesh.devices)
 
     def call(depth_matrix: np.ndarray) -> Tuple[np.ndarray, ...]:
         DISPATCH_COUNTS["batched"] += 1
-        return _launch("launch.k2", go, depth_matrix)
+        return _launch("launch.k2", go, depth_matrix, operand_builds=builds)
 
     return call
 
@@ -219,10 +289,10 @@ def make_condensed_eval(cg, max_iters: int = 64, with_times: bool = False,
         return None
     max_iters = int(max_iters)
 
-    def run(dev, depth_matrix, iters=False):
+    def run(dev, depth_matrix, upload):
         ops, ct = opses[dev], cts[dev]
         with obs.span("launch.operands"):
-            depths = _rows(depth_matrix, dev)
+            depths = upload(depth_matrix, dev)
             rd_lat_e, bp_idx, bp_valid, bp_base, structural = \
                 depth_operands(ops, depths)
             csrc, cdst, cthr, cval = cert_row_operands(ops, ct, depths)
@@ -232,25 +302,23 @@ def make_condensed_eval(cg, max_iters: int = 64, with_times: bool = False,
                 ops.data_idx, ops.end_bonus, rd_lat_e, bp_idx, bp_valid,
                 bp_base, csrc, cdst, cthr, cval, max_iters=max_iters,
                 bound=ops.bound, with_times=with_times)
-        lat = torch.clamp(out[:, 0], min=ops.taskless_lat)
-        status = _status(out, structural)
-        # kernel cert = conv & ~over & no violated slot; a structurally
-        # deadlocked row must additionally never certify
-        cert = (out[:, 4] > 0) & (status == CONVERGED)
-        bram = bram_count_torch(depths, ops.widths[None, :]).sum(
-            dim=1, dtype=torch.int32)
+        packed = eval_epilogue(out, structural, depths, ops.widths,
+                               ops.taskless_lat)
+        return (packed, times) if with_times else (packed,)
+
+    def answer(packed, times=None, iters=False):
+        lat, bram, status, it, cert = unpack(packed)
         res = (lat, bram, status, cert)
         if with_times:
             res += (times,)
-        if iters:
-            res += (out[:, ITERS_LANE],)
-        return res
+        return res + (it,) if iters else res
 
-    go = _over(run, device, mesh, "condensed")
+    go = _packed_over(run, answer, device, mesh, "condensed")
+    builds = 1 if mesh is None else len(mesh.devices)
 
     def call(depth_matrix: np.ndarray) -> Tuple[np.ndarray, ...]:
         DISPATCH_COUNTS["condensed"] += 1
-        return _launch("launch.k1", go, depth_matrix)
+        return _launch("launch.k1", go, depth_matrix, operand_builds=builds)
 
     return call
 
