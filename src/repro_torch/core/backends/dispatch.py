@@ -25,26 +25,25 @@ Kernel-backed rung evaluators certify on the device
 (``fused_certificate``); the rest return event times for the host-side
 ``condense.verify_rows``.
 
-:class:`HeteroDispatcher` extends the same concerns across *designs*: it
-packs rows from many graphs into one batch over a shared ``E*/F*/R*``
-envelope — one K2 launch in its per-design-table mode on a CUDA device —
-with the same escalation: a dispatch's UNRESOLVED rows of every design in
-one K2 launch on a CUDA device, then each design's worklist.  torch is
-imported lazily, so this module stays importable in the numpy-only worker
+:class:`HeteroDispatcher` extends the same concerns across *designs*: one
+K2 launch in its per-design-table mode over a shared ``E*/F*/R*``
+envelope, the same padding (:func:`pad_rows` to :func:`target_rows`, as
+in the backends) and the same escalation routine.  torch is imported
+lazily, so this module stays importable in the numpy-only worker
 processes.
 
-Spans (:mod:`repro_torch.obs`): ``cascade.rung`` (``rows``, ``accepted``)
-for each rung tried, ``escalation`` around the escalation of UNRESOLVED
-rows (``rows``; ``device``: the rows K2 settled, where it runs), and
+Spans (:mod:`repro_torch.obs`): ``escalation``, one a dispatch with
+UNRESOLVED rows, around the tier's launch and every worklist call
+(``rows``; ``device``: the rows K2 settled, only where the tier runs);
+``cascade.rung`` (``rows``, ``accepted``) for each rung tried;
 ``hetero.stack`` around packing a cross-design batch.
 """
 
 from __future__ import annotations
 
-import contextlib
 import dataclasses
 import time
-from typing import Dict, List, Optional, Sequence, Tuple
+from typing import Callable, Dict, List, Optional, Sequence, Tuple
 
 import numpy as np
 
@@ -52,20 +51,54 @@ from repro_torch import obs
 from repro_torch.core.backends.base import (CONVERGED, DEADLOCK,
                                             ESCALATION_ITERS,
                                             F32_EXACT_LIMIT, EvalBackend,
-                                            UNRESOLVED)
+                                            UNRESOLVED, resolve_device)
 from repro_torch.core.backends.worklist import WorklistBackend
 
 BUCKETS = (1, 8, 32, 128, 512, 2048)
 
 
-def _settle(rows: np.ndarray, r_lat: np.ndarray, r_status: np.ndarray,
-            lat: np.ndarray, dead: np.ndarray) -> np.ndarray:
-    """Write the answers of the ``rows`` that ``r_status`` resolves into
-    ``lat`` and ``dead``; returns the rows still UNRESOLVED."""
+def target_rows(c: int, buckets: Sequence[int], shard_multiple: int
+                ) -> int:
+    """The rows a batch of ``c`` is padded to: the smallest of ``buckets``
+    that covers it (``c`` itself above the last), rounded up to a
+    multiple of ``shard_multiple``."""
+    target = next((b for b in buckets if b >= c), c)
+    return -(-target // shard_multiple) * shard_multiple
+
+
+def pad_rows(target: int, *row_arrays: np.ndarray) -> Tuple[np.ndarray, ...]:
+    """Each of ``row_arrays`` padded to ``target`` rows by repeating its
+    last row (as it is where it has them already)."""
+    return tuple(a if a.shape[0] >= target else np.concatenate(
+        [a, np.repeat(a[-1:], target - a.shape[0], axis=0)])
+        for a in row_arrays)
+
+
+def _settle(rows: np.ndarray, answer: tuple, lat: np.ndarray,
+            dead: np.ndarray) -> np.ndarray:
+    """Write the ``rows`` that ``answer``, ``(latency, ..., status)`` of
+    each row, resolves into ``lat`` and ``dead``; returns the rows still
+    UNRESOLVED."""
+    r_lat, r_status = answer[0], answer[-1]
     done = r_status != UNRESOLVED
     lat[rows[done]] = r_lat[done]
     dead[rows[done]] = r_status[done] == DEADLOCK
     return rows[~done]
+
+
+def _escalate(rows: np.ndarray, tier: Optional[Callable], solve: Callable,
+              lat: np.ndarray, dead: np.ndarray) -> None:
+    """Settle the UNRESOLVED ``rows`` (indices into ``lat`` and ``dead``)
+    in one ``escalation`` span: ``tier(rows)`` first where there is one
+    (the span's ``device``: the rows it settled), then ``solve(rest)``,
+    the worklist, on the rest; each answers ``(latency, ..., status)``."""
+    with obs.span("escalation", rows=int(rows.size)) as span:
+        if tier is not None:
+            rest = _settle(rows, tier(rows), lat, dead)
+            span.set(device=int(rows.size - rest.size))
+            rows = rest
+        if rows.size:
+            _settle(rows, solve(rows), lat, dead)
 
 
 class DispatchPolicy:
@@ -83,21 +116,11 @@ class DispatchPolicy:
         self.buckets = tuple(buckets)
         self.shard_multiple = max(1, int(shard_multiple))
 
-    def bucket_size(self, c: int) -> Optional[int]:
-        return next((b for b in self.buckets if b >= c), None)
-
     def pad_batch(self, m: np.ndarray) -> np.ndarray:
         """Pad C up to the covering bucket (rounded to a shard multiple)
         by repeating the last row."""
-        c = m.shape[0]
-        bucket = self.bucket_size(c)
-        target = c if bucket is None else bucket
-        k = self.shard_multiple
-        target = -(-target // k) * k
-        if target == c:
-            return m
-        pad = np.repeat(m[-1:], target - c, axis=0)
-        return np.concatenate([m, pad], axis=0)
+        return pad_rows(target_rows(m.shape[0], self.buckets,
+                                    self.shard_multiple), m)[0]
 
     def dispatch(self, backend: EvalBackend, depth_matrix: np.ndarray,
                  stats=None) -> Tuple[np.ndarray, np.ndarray, np.ndarray]:
@@ -111,16 +134,9 @@ class DispatchPolicy:
         dead = status == DEADLOCK
         unresolved = np.flatnonzero(status == UNRESOLVED)
         if unresolved.size:
-            with obs.span("escalation", rows=int(unresolved.size)) as span:
-                rest = unresolved
-                if backend.device_escalation:
-                    rest = _settle(unresolved,
-                                   *backend.escalate(m[unresolved]),
-                                   lat, dead)
-                    span.set(device=int(unresolved.size - rest.size))
-                if rest.size:
-                    wl_lat, _, wl_status = self.worklist.evaluate(m[rest])
-                    _settle(rest, wl_lat, wl_status, lat, dead)
+            _escalate(unresolved, (lambda r: backend.escalate(m[r]))
+                      if backend.device_escalation else None,
+                      lambda r: self.worklist.evaluate(m[r]), lat, dead)
             if stats is not None:
                 stats.n_fallbacks += int(unresolved.size)
         lat = np.where(dead, -1, lat)
@@ -204,17 +220,13 @@ class RungCascade:
         certificate passed)`` per row."""
         n = rows.shape[0]
         fused = impl.fused_certificate
-        if impl.wants_bucketing or fused:
-            # the fused kernel path buckets too, as the reference's
-            # does (routing kept so dispatch counts compare)
-            batch = self.policy.pad_batch(rows)
-        else:
-            batch = rows
-        if fused:
+        # the fused kernel path buckets too, as the reference's does
+        # (routing kept so dispatch counts compare)
+        batch = self.policy.pad_batch(rows) \
+            if impl.wants_bucketing or fused else rows
+        if fused:       # a DEADLOCK is sound: the relaxed system stalls
             rlat, _, rstatus, ok = impl.evaluate_certified(batch)
-            rlat, rstatus, ok = rlat[:n], rstatus[:n], ok[:n]
-            # sound: the relaxed system stalls
-            return rlat, rstatus == DEADLOCK, ok
+            return rlat[:n], rstatus[:n] == DEADLOCK, ok[:n]
         from repro_torch.core.condense import verify_rows
         rlat, _, rstatus, times = impl.evaluate_with_times(batch)
         rlat, rstatus = rlat[:n], rstatus[:n]
@@ -245,11 +257,11 @@ class HeteroDispatcher:
     (:class:`~repro_torch.core.backends.operands.HeteroTables`).  A
     dispatch sends each row's table index and depths, padded to a bucket
     of :attr:`BUCKETS` (the reference's sizes), through one launch.
-    UNRESOLVED rows are escalated exactly like :class:`DispatchPolicy`:
-    on a CUDA device (:attr:`device_escalation`) those of every design in
-    one K2 launch at :attr:`escalation_iters` over the same tables, then
-    what is left to the owning design's worklist arbiter.  ``device=None``
-    means ``cuda``.
+    UNRESOLVED rows are escalated as by :class:`DispatchPolicy`: on a
+    CUDA device (:attr:`device_escalation`) those of every design in one
+    K2 launch at :attr:`escalation_iters` over the same tables, then what
+    is left to the owning design's worklist, one call an item.
+    ``device=None`` means ``cuda``.
 
     ``mesh`` (or ``shards``, a 1-D eval mesh over that many devices of
     ``device``'s kind) partitions the packed batch over the mesh's
@@ -269,7 +281,6 @@ class HeteroDispatcher:
                  max_iters: int = 64,
                  buckets: Sequence[int] = BUCKETS,
                  mesh=None, shards: Optional[int] = None, device=None):
-        from repro_torch.core.backends.base import resolve_device
         from repro_torch.core.backends.operands import get_operands
         from repro_torch.kernels.fifo_eval.ops import \
             make_hetero_batched_eval
@@ -292,9 +303,9 @@ class HeteroDispatcher:
         self.worklists: Dict[str, WorklistBackend] = {}
         self._call = make_hetero_batched_eval(max_iters, device=self.device,
                                               mesh=mesh)
-        # unpadded, on the first device of a mesh, no BRAM count
+        # unpadded, on the first device of a mesh
         self._escalate = make_hetero_batched_eval(
-            self.escalation_iters, device=self.device, with_bram=False) \
+            self.escalation_iters, device=self.device) \
             if self.device_escalation else None
         self.buckets = tuple(buckets)
         self.stats = HeteroStats()
@@ -356,23 +367,6 @@ class HeteroDispatcher:
             worklist.prepare(graph)
         self.worklists[key] = worklist
 
-    def _pad_rows(self, table_of_row: np.ndarray, depths: np.ndarray
-                  ) -> Tuple[np.ndarray, np.ndarray]:
-        """Pad the batch up to the covering bucket (rounded to a shard
-        multiple) by repeating the last row."""
-        c = depths.shape[0]
-        bucket = next((b for b in self.buckets if b >= c), None)
-        target = c if bucket is None else bucket
-        k = self.shard_multiple
-        target = -(-target // k) * k
-        if target == c:
-            return table_of_row, depths
-        pad = target - c
-        return (np.concatenate([table_of_row,
-                                np.repeat(table_of_row[-1:], pad)]),
-                np.concatenate([depths, np.repeat(depths[-1:], pad,
-                                                  axis=0)]))
-
     def dispatch(self, items: List[Tuple[str, np.ndarray]]
                  ) -> List[Tuple[np.ndarray, np.ndarray, np.ndarray]]:
         """``[(design_key, (c_i, F_i) depths), ...]`` -> per-item results.
@@ -389,21 +383,19 @@ class HeteroDispatcher:
                 [(self._slot[k], m) for (k, _), m in zip(items, mats)],
                 self.f_max)
             C = depths.shape[0]
-            table_of_row, depths = self._pad_rows(table_of_row, depths)
+            table_of_row, depths = pad_rows(
+                target_rows(C, self.buckets, self.shard_multiple),
+                table_of_row, depths)
         lat, bram, status = self._call(self._tables, table_of_row, depths)
         lat, bram, status = lat[:C], bram[:C], status[:C]
         dead = status == DEADLOCK
         unresolved = np.flatnonzero(status == UNRESOLVED)
         row0 = np.cumsum([0] + [m.shape[0] for m in mats])
-        if unresolved.size and self._escalate is not None:
-            with obs.span("escalation", rows=int(unresolved.size)) as span:
-                rest = _settle(unresolved, *self._escalate(
-                    self._tables, table_of_row[unresolved],
-                    depths[unresolved]), lat, dead)
-                span.set(device=int(unresolved.size - rest.size))
-                self._worklists(items, mats, row0, rest, lat, dead, False)
-        else:
-            self._worklists(items, mats, row0, unresolved, lat, dead, True)
+        if unresolved.size:
+            _escalate(unresolved, (lambda r: self._escalate(
+                self._tables, table_of_row[r], depths[r]))
+                if self._escalate is not None else None,
+                lambda r: self._worklists(items, mats, row0, r), lat, dead)
         self.stats.n_fallbacks += int(unresolved.size)
         lat = np.where(dead, -1, lat)
         out = [(lat[a:b], bram[a:b], dead[a:b])
@@ -414,17 +406,15 @@ class HeteroDispatcher:
         self.stats.wall_s += time.perf_counter() - t_start
         return out
 
-    def _worklists(self, items, mats, row0: np.ndarray, rows: np.ndarray,
-                   lat: np.ndarray, dead: np.ndarray, spans: bool) -> None:
-        """Solve the UNRESOLVED ``rows`` (indices into the stacked batch)
-        on each item's worklist, one call an item, each in an
-        ``escalation`` span where ``spans`` (else the caller's span holds
-        them all)."""
+    def _worklists(self, items, mats, row0: np.ndarray, rows: np.ndarray
+                   ) -> Tuple[np.ndarray, np.ndarray]:
+        """``(latency, status)`` of the ``rows`` (indices into the stacked
+        batch) from each item's worklist, one call an item."""
         owner = np.searchsorted(row0, rows, side="right") - 1
+        lat = np.empty(rows.size, dtype=np.int64)
+        status = np.empty(rows.size, dtype=np.int8)
         for i in np.unique(owner):
-            sel = rows[owner == i]
-            with obs.span("escalation", rows=int(sel.size)) if spans \
-                    else contextlib.nullcontext():
-                wl_lat, _, wl_status = self.worklists[items[i][0]].evaluate(
-                    mats[i][sel - row0[i]])
-            _settle(sel, wl_lat, wl_status, lat, dead)
+            mine = owner == i
+            lat[mine], _, status[mine] = self.worklists[items[i][0]].evaluate(
+                mats[i][rows[mine] - row0[i]])
+        return lat, status

@@ -39,12 +39,32 @@ from repro_torch.core.simgraph import SimGraph
 
 from repro_torch.core.backends.base import (ESCALATION_ITERS, EvalBackend,
                                             register_backend, resolve_device)
+from repro_torch.core.backends.dispatch import pad_rows, target_rows
 from repro_torch.core.backends.operands import get_operands
+from repro_torch.kernels.fifo_eval.ops import (make_batched_eval,
+                                               make_condensed_eval)
 
 #: minimum condensation ratio for the kernel backend to fuse the
 #: certificate into the evaluation launch (kept from the reference so that
 #: dispatch counts compare; re-deriving it on the H100 is ROADMAP work)
 FUSED_MIN_COMPRESSION = 8.0
+
+
+def _answer(x: np.ndarray) -> np.ndarray:
+    """Latencies and times rounded to int64, BRAM widened to int64, status
+    and certificate as they are."""
+    if x.dtype.kind == "f":
+        return np.asarray(np.rint(x), dtype=np.int64)
+    return x.astype(np.int64) if x.dtype == np.int32 else x
+
+
+def _run(call, depth_matrix: np.ndarray, k: int) -> tuple:
+    """``call`` on the (C, F) int32 rows padded (repeating the last) to a
+    multiple of ``k``; its answers sliced back to C rows."""
+    m = np.atleast_2d(np.asarray(depth_matrix, dtype=np.int32))
+    c = m.shape[0]
+    return tuple(_answer(x[:c])
+                 for x in call(*pad_rows(target_rows(c, (), k), m)))
 
 
 class _ScanBackend(EvalBackend):
@@ -67,18 +87,7 @@ class _ScanBackend(EvalBackend):
         """Row counts must be a multiple of this (the mesh size)."""
         return self.mesh.size if self.mesh is not None else 1
 
-    def _pad_shards(self, m: np.ndarray) -> Tuple[np.ndarray, int]:
-        """Pad rows (repeating the last) to a shard multiple; returns the
-        padded matrix and the real row count to slice results back to."""
-        c = m.shape[0]
-        k = self.shard_multiple
-        if k > 1 and c % k:
-            m = np.concatenate([m, np.repeat(m[-1:], k - c % k, axis=0)])
-        return m, c
-
     def prepare(self, g: SimGraph):
-        from repro_torch.kernels.fifo_eval.ops import (make_batched_eval,
-                                                       make_condensed_eval)
         self.g = g
         self.ops = get_operands(g, self.device)
         self._call = make_batched_eval(
@@ -119,17 +128,12 @@ class _ScanBackend(EvalBackend):
         """(C, F) UNRESOLVED rows -> (latency i64, status i8) from one K2
         launch at :attr:`escalation_iters`, from zero as every launch
         starts.  Rows are launched unpadded (K2 compiles nothing per
-        shape), on the mesh's first device where there is a mesh, and
-        without the BRAM count, which escalation does not read."""
+        shape), on the mesh's first device where there is a mesh."""
         if self._escalate is None:
-            from repro_torch.kernels.fifo_eval.ops import make_batched_eval
             self._escalate = make_batched_eval(
-                self.g, max_iters=self.escalation_iters,
-                device=self.device, with_bram=False)
-        lat, status = self._escalate(
-            np.atleast_2d(np.asarray(depth_matrix, dtype=np.int32)))
-        return (np.asarray(np.rint(lat), dtype=np.int64),
-                np.asarray(status, dtype=np.int8))
+                self.g, max_iters=self.escalation_iters, device=self.device)
+        lat, _, status = _run(self._escalate, depth_matrix, 1)
+        return lat, status
 
     def evaluate_certified(self, depth_matrix: np.ndarray
                            ) -> Tuple[np.ndarray, np.ndarray, np.ndarray,
@@ -139,22 +143,11 @@ class _ScanBackend(EvalBackend):
         cross constraint (``verify_rows`` semantics — cert is True only on
         CONVERGED rows whose expansion is provably the raw least
         fixpoint).  Only valid when :attr:`fused_certificate`."""
-        m, c = self._pad_shards(
-            np.atleast_2d(np.asarray(depth_matrix, dtype=np.int32)))
-        lat, bram, status, cert = self._fused(m)
-        return (np.asarray(np.rint(lat[:c]), dtype=np.int64),
-                np.asarray(bram[:c], dtype=np.int64),
-                np.asarray(status[:c], dtype=np.int8),
-                np.asarray(cert[:c], dtype=bool))
+        return _run(self._fused, depth_matrix, self.shard_multiple)
 
     def evaluate(self, depth_matrix: np.ndarray
                  ) -> Tuple[np.ndarray, np.ndarray, np.ndarray]:
-        m, c = self._pad_shards(
-            np.atleast_2d(np.asarray(depth_matrix, dtype=np.int32)))
-        lat, bram, status = self._call(m)
-        return (np.asarray(np.rint(lat[:c]), dtype=np.int64),
-                np.asarray(bram[:c], dtype=np.int64),
-                np.asarray(status[:c], dtype=np.int8))
+        return _run(self._call, depth_matrix, self.shard_multiple)
 
     def evaluate_with_times(self, depth_matrix: np.ndarray
                             ) -> Tuple[np.ndarray, np.ndarray, np.ndarray,
@@ -162,17 +155,10 @@ class _ScanBackend(EvalBackend):
         """Like :meth:`evaluate`, also returning the (C, E_pad) final
         event times (int64) — the condensation certificate's input."""
         if self._call_times is None:
-            from repro_torch.kernels.fifo_eval.ops import make_batched_eval
             self._call_times = make_batched_eval(
                 self.g, use_ref=self.use_ref, max_iters=self.max_iters,
                 with_times=True, device=self.device, mesh=self.mesh)
-        m, c = self._pad_shards(
-            np.atleast_2d(np.asarray(depth_matrix, dtype=np.int32)))
-        lat, bram, status, times = self._call_times(m)
-        return (np.asarray(np.rint(lat[:c]), dtype=np.int64),
-                np.asarray(bram[:c], dtype=np.int64),
-                np.asarray(status[:c], dtype=np.int8),
-                np.asarray(np.rint(times[:c]), dtype=np.int64))
+        return _run(self._call_times, depth_matrix, self.shard_multiple)
 
 
 @register_backend

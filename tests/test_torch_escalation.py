@@ -206,7 +206,14 @@ def test_hetero_tier_equals_worklist_only_path(deep):
     settled = []
     for seed in (11, 12, 13):
         items = _items(keys, seed)
-        want = plain.dispatch(items)
+        before = plain.stats.n_fallbacks
+        obs.clear()
+        want, summ, recs, _ = _recorded(lambda: plain.dispatch(items))
+        # the same layout without the tier: one span, no launch under it
+        assert summ["escalation"]["count"] == 1
+        assert summ["escalation"]["attrs"] == {
+            "rows": plain.stats.n_fallbacks - before}
+        assert not _children(recs, "escalation", "launch.k2_hetero")
         before = tier.stats.n_fallbacks
         obs.clear()
         got, summ, recs, counts = _recorded(lambda: tier.dispatch(items))
@@ -230,6 +237,27 @@ def test_hetero_tier_equals_worklist_only_path(deep):
         assert any(d < n for d, n in settled)
     else:
         assert any(d for d, _ in settled)
+
+
+@pytest.mark.parametrize("seed", [11, 12, 13])
+def test_hetero_cpu_escalation_is_one_span_a_dispatch(seed):
+    """On the CPU (no tier) a dispatch escalates the UNRESOLVED rows of
+    every design in one ``escalation`` span, as with the tier: its
+    ``rows`` are the dispatch's ``n_fallbacks``, a ``worklist.solve`` a
+    row under it, no launch and no ``device``."""
+    keys = sorted(DESIGNS) + ["pna"]
+    plain = HeteroDispatcher({k: build_simgraph(DESIGNS[k]) for k in keys},
+                             max_iters=MAX_ITERS, device="cpu")
+    _, summ, recs, counts = _recorded(
+        lambda: plain.dispatch(_items(keys, seed)))
+    n = plain.stats.n_fallbacks
+    assert summ["escalation"]["count"] == 1
+    assert summ["escalation"]["attrs"] == {"rows": n} and n > 0
+    assert len(_children(recs, "escalation", "worklist.solve")) == n
+    assert not [r for r in recs if r[3] is not None
+                and recs[r[3]][0] == "escalation"
+                and r[0].startswith("launch.")]
+    assert counts == {"hetero": 1}
 
 
 def test_hetero_campaign_with_the_tier_answers_as_without(monkeypatch):

@@ -10,7 +10,9 @@
   rows at batch sizes 1, 5 and 37, UNRESOLVED rows at a small cap
   included;
 * ``HeteroDispatcher.dispatch`` equals the reference's and the per-design
-  worklist's, with equal ``HeteroStats``.
+  worklist's, with equal ``HeteroStats``;
+* ``pad_rows`` to ``target_rows``, the one padder of the dispatchers and
+  the backends, pads as each helper it replaced did.
 
 Exact equality throughout: every time is an integer in float32."""
 
@@ -39,7 +41,9 @@ from repro.kernels.fifo_eval.ops import \
 from repro.kernels.fifo_eval.ref import \
     fifo_eval_ref_hetero as ref_fifo_eval_ref_hetero
 
-from repro_torch.core.backends import DEADLOCK, UNRESOLVED, HeteroDispatcher
+from repro_torch.core.backends import (DEADLOCK, UNRESOLVED, DispatchPolicy,
+                                       HeteroDispatcher)
+from repro_torch.core.backends.dispatch import BUCKETS, pad_rows, target_rows
 from repro_torch.core.backends import operands as ops_t
 from repro_torch.core.simgraph import build_simgraph
 from repro_torch.designs import flowgnn_pna, make_design, mult_by_2
@@ -345,3 +349,40 @@ def test_hetero_sharding_names_its_roadmap_item(graphs):
     want = make_hetero_batched_eval(device="cpu")(tables, tor, depths)
     for a, b in zip(got, want):
         np.testing.assert_array_equal(a, b)
+
+
+#: (rows, buckets, shard multiple, padded rows): each padded row count is
+#: what the helpers before ``target_rows`` gave, ``DispatchPolicy
+#: .pad_batch``, ``HeteroDispatcher._pad_rows`` and, without buckets,
+#: ``_ScanBackend._pad_shards``
+PADS = {
+    "no_bucket": (5, (), 1, 5),
+    "bucket": (5, BUCKETS, 1, 8),
+    "hetero_bucket": (5, HeteroDispatcher.BUCKETS, 1, 8),
+    "shard_multiple": (5, (), 4, 8),
+    "bucket_to_shard_multiple": (5, HeteroDispatcher.BUCKETS, 3, 9),
+    "over_the_last_bucket": (2049, BUCKETS, 1, 2049),
+    "over_the_last_bucket_sharded": (4097, HeteroDispatcher.BUCKETS, 2,
+                                     4098),
+    "exact": (32, BUCKETS, 2, 32),
+}
+
+
+@pytest.mark.parametrize("case", list(PADS))
+def test_pad_rows_to_target_rows_pad_as_the_old_helpers(case):
+    """The target, then every row array padded to it by repeating its
+    last row (a table index beside its depth rows), untouched where it
+    needs no pad; ``DispatchPolicy.pad_batch`` pads the same."""
+    c, buckets, k, want = PADS[case]
+    assert target_rows(c, buckets, k) == want
+    tor = np.arange(c) % 3
+    depths = np.arange(2 * c).reshape(c, 2)
+    got_tor, got = pad_rows(want, tor, depths)
+    assert got_tor.shape == (want,) and got.shape == (want, 2)
+    np.testing.assert_array_equal(got_tor[:c], tor)
+    np.testing.assert_array_equal(got[:c], depths)
+    assert (got_tor[c:] == tor[-1]).all() and (got[c:] == depths[-1]).all()
+    if want == c:
+        assert got_tor is tor and got is depths
+    np.testing.assert_array_equal(
+        DispatchPolicy(None, buckets, k).pad_batch(depths), got)

@@ -170,24 +170,6 @@ def test_plain_operands_and_epilogue_equal_the_reference(label, max_iters):
         assert (status == UNRESOLVED).any()
 
 
-def _before(g, rows, max_iters, with_times):
-    """What the closures computed before they ran on packed results: the
-    plain operands, the plain K2, then the latency clamp, the status rule
-    and the BRAM count as separate torch steps."""
-    p = ops_t.get_operands(g, CPU)
-    d = torch.as_tensor(rows)
-    rd, bpi, bpv, bpb, structural = ops_t.depth_operands_plain(p, d)
-    out, t = fifo_eval_plain(p.delta, p.seg_start, p.is_read, p.has_data,
-                             p.data_idx, p.end_bonus, rd, bpi, bpv, bpb,
-                             max_iters=max_iters, bound=p.bound,
-                             with_times=with_times)
-    lat = torch.clamp(out[:, 0], min=p.taskless_lat)
-    bram = ops_t.bram_count_torch(d, p.widths[None, :]).sum(
-        dim=1, dtype=torch.int32)
-    res = (lat, bram, launch_ops._status(out, structural))
-    return tuple(x.numpy() for x in res + ((t,) if with_times else ()))
-
-
 @functools.lru_cache(maxsize=None)
 def _ref_answer(label, with_times):
     """The reference closure's answer on :func:`_edge_rows` (seed 7) at
@@ -202,9 +184,9 @@ def _ref_answer(label, with_times):
 VARIANTS = {
     "plain": dict(),
     "use_ref": dict(use_ref=True),
-    "no_bram": dict(with_bram=False),
     "with_times": dict(with_times=True),
     "mesh2": dict(mesh=2),
+    "mesh2_times": dict(mesh=2, with_times=True),
 }
 
 
@@ -212,24 +194,19 @@ VARIANTS = {
 @pytest.mark.parametrize("label", ["k15mmtree/raw", "k15mmtree/safe",
                                    "flowgnn_pna_stream", "leftover"])
 def test_closure_variants_return_the_tuples_of_before(label, variant):
+    """Each variant of the K2 closure (K2 or the plain fixpoint, with or
+    without times, on one device or staged over a mesh of 2) returns the
+    reference closure's tuple: its length, dtypes and values."""
     g = _graphs()[label][1]
     kw = dict(VARIANTS[variant])
     if "mesh" in kw:
         kw["mesh"] = make_eval_mesh(kw["mesh"], device="cpu")
-    rows = _edge_rows(g, seed=7)
     call = ops.make_batched_eval(g, max_iters=64, device="cpu", **kw)
-    got = call(rows)
-    want = _before(g, rows, 64, kw.get("with_times", False))
-    if not kw.get("with_bram", True):
-        want = (want[0], want[2])
+    got = call(_edge_rows(g, seed=7))
+    want = _ref_answer(label, kw.get("with_times", False))
     assert len(got) == len(want)
     for a, b in zip(got, want):
         assert isinstance(a, np.ndarray) and a.dtype == b.dtype
-        np.testing.assert_array_equal(a, b)
-    ref = _ref_answer(label, kw.get("with_times", False))
-    if not kw.get("with_bram", True):
-        ref = (ref[0], ref[2])
-    for a, b in zip(got, ref):
         np.testing.assert_array_equal(a, b)
 
 
