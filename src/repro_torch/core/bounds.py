@@ -139,27 +139,41 @@ def _event_tasks(g: SimGraph) -> np.ndarray:
     return task_of
 
 
+def last_owner(owner: np.ndarray, events: np.ndarray, fifo: np.ndarray,
+               n_fifos: int) -> np.ndarray:
+    """``owner`` of the last of ``events`` on each fifo (-1: none)."""
+    last = np.full(n_fifos, -1, dtype=np.int64)
+    np.maximum.at(last, fifo[events], events)
+    out = np.full(n_fifos, -1, dtype=np.int64)
+    has = last >= 0
+    out[has] = owner[last[has]]
+    return out
+
+
 def _required_write_ranks(g: SimGraph) -> np.ndarray:
     """The need-DP: ``need[e, f]`` = max write rank of fifo ``f`` that
-    event ``e`` transitively requires (-1: none).  O(E·F)."""
+    event ``e`` transitively requires (-1: none).  O(E·F).
+
+    One pass a task segment, in trace order: each event's row starts at
+    -1 but for its own rank at its own fifo, a read whose ``data_src``
+    lies in an earlier segment takes that (finished) row in, and a
+    prefix max down the segment carries program order.  A ``data_src``
+    earlier in the same segment is already inside the prefix max; one at
+    or after the read contributes nothing."""
     E, F = g.n_events, g.n_fifos
     need = np.full((E, F), -1, dtype=np.int64)
-    row = np.full(F, -1, dtype=np.int64)
-    for e in range(E):
-        if g.seg_start[e]:
-            row = np.full(F, -1, dtype=np.int64)
-        else:
-            row = row.copy()
-        if g.kind[e] == READ:
-            src = int(g.data_src[e])
-            np.maximum(row, need[src], out=row)
-        # the op itself touches write rank `rank[e]` of its fifo: a WRITE
-        # emits it, a READ consumes it (its data_src already carries it,
-        # but stating it keeps the invariant J(k) >= k explicit)
-        f = int(g.fifo[e])
-        if row[f] < g.rank[e]:
-            row[f] = int(g.rank[e])
-        need[e] = row
+    # the op itself touches write rank `rank[e]` of its fifo: a WRITE
+    # emits it, a READ consumes it (its data_src already carries it, but
+    # stating it keeps the invariant J(k) >= k explicit)
+    need[np.arange(E), g.fifo] = g.rank
+    starts = np.union1d(np.flatnonzero(g.seg_start), [0])[:E]
+    src = g.data_src
+    for lo, hi in zip(starts, np.append(starts[1:], E)):
+        seg = slice(lo, hi)
+        cross = lo + np.flatnonzero((g.kind[seg] == READ) & (src[seg] >= 0)
+                                    & (src[seg] < lo))
+        need[cross] = np.maximum(need[cross], need[src[cross]])
+        np.maximum.accumulate(need[seg], axis=0, out=need[seg])
     return need
 
 
@@ -179,19 +193,13 @@ def _channel_bounds(g: SimGraph) -> ChannelBounds:
     need = _required_write_ranks(g)
     task_of = _event_tasks(g)
 
+    writes = np.flatnonzero(g.kind == WRITE)
+    reads = np.flatnonzero(g.kind != WRITE)
+    writer = last_owner(task_of, writes, g.fifo, F)
+    reader = last_owner(task_of, reads, g.fifo, F)
     slack = np.zeros(F, dtype=np.int64)
-    writer = np.full(F, -1, dtype=np.int64)
-    reader = np.full(F, -1, dtype=np.int64)
-    for e in range(g.n_events):
-        f = int(g.fifo[e])
-        if g.kind[e] == WRITE:
-            writer[f] = task_of[e]
-        else:
-            reader[f] = task_of[e]
-            k = int(g.rank[e])
-            s = int(need[e, f]) - k
-            if s > slack[f]:
-                slack[f] = s
+    rf = g.fifo[reads]
+    np.maximum.at(slack, rf, need[reads, rf] - g.rank[reads])
 
     upper = np.maximum(g.max_occupancy, 1).astype(np.int64)
     # slack exceeding occupancy-1 would contradict the occupancy proof

@@ -29,7 +29,8 @@ from typing import Dict, List, Tuple
 import numpy as np
 
 from repro_torch import obs
-from repro_torch.core.design import READ, WRITE
+from repro_torch.core.bounds import last_owner
+from repro_torch.core.design import WRITE
 from repro_torch.core.simgraph import SimGraph
 
 
@@ -42,21 +43,97 @@ def _segments(g: SimGraph) -> Tuple[np.ndarray, np.ndarray]:
 
 
 def task_pairs(g: SimGraph) -> Dict[Tuple[int, int], List[int]]:
-    """(writer_seg, reader_seg) -> fifo indices connecting them."""
+    """(writer_seg, reader_seg) -> fifo indices connecting them; a fifo's
+    writer and reader are the segments of its last write and last read."""
     _, seg_of_evt = _segments(g)
-    writer = {}
-    reader = {}
-    for e in range(g.n_events):
-        f = int(g.fifo[e])
-        if g.kind[e] == WRITE:
-            writer[f] = int(seg_of_evt[e])
-        else:
-            reader[f] = int(seg_of_evt[e])
+    writer = last_owner(seg_of_evt, np.flatnonzero(g.kind == WRITE),
+                        g.fifo, g.n_fifos)
+    reader = last_owner(seg_of_evt, np.flatnonzero(g.kind != WRITE),
+                        g.fifo, g.n_fifos)
     pairs: Dict[Tuple[int, int], List[int]] = {}
-    for f in range(g.n_fifos):
-        if f in writer and f in reader:
-            pairs.setdefault((writer[f], reader[f]), []).append(f)
+    for f in np.flatnonzero((writer >= 0) & (reader >= 0)).tolist():
+        pairs.setdefault((int(writer[f]), int(reader[f])), []).append(f)
     return pairs
+
+
+class _PairChains:
+    """The event chains of one task pair, with only ``fifos`` bounded.
+
+    Chain 0 is segment ``pair[0]`` and chain 1 is segment ``pair[1]``
+    (empty when the two are one segment).  Each bounded event waits on
+    one other event: a read on the write of its rank (``data_src``), a
+    write of rank ``k`` on the read of rank ``k - d`` (on none below 0).
+    That wait is stated as the number of events of the other chain that
+    must be done first.  A wait on an earlier event of the event's own
+    chain is 0; on a later one, on an event of neither chain, or on an
+    event that does not exist, it is :attr:`never`.  Only the writes'
+    waits depend on the depths, so the reads' are computed once.
+    """
+
+    def __init__(self, g: SimGraph, pair: Tuple[int, int],
+                 fifos: List[int]):
+        bounds, _ = _segments(g)
+        s0, s1 = pair
+        lo0, hi0 = int(bounds[s0]), int(bounds[s0 + 1])
+        lo1, hi1 = ((int(bounds[s1]), int(bounds[s1 + 1])) if s1 != s0
+                    else (hi0, hi0))
+        self.g = g
+        self.lo, self.hi = (lo0, lo1), (hi0, hi1)
+        self.n = (hi0 - lo0, hi1 - lo1)
+        self.never = self.n[0] + self.n[1] + 1
+        bounded = np.zeros(g.n_fifos, dtype=bool)
+        bounded[np.asarray(fifos, dtype=np.int64)] = True
+        ev = np.concatenate([np.arange(lo0, hi0), np.arange(lo1, hi1)])
+        ev = ev[bounded[g.fifo[ev]]]
+        write = g.kind[ev] == WRITE
+        reads = ev[~write]
+        self.read_waits = [np.zeros(n, dtype=np.int64) for n in self.n]
+        self._place(reads, self._wait(reads, g.data_src[reads]),
+                    self.read_waits)
+        self.writes = ev[write]
+        self.w_fifo = g.fifo[self.writes]
+        self.w_rank = g.rank[self.writes]
+        self.w_base = g.read_base[self.w_fifo]
+        self.w_reads = g.n_reads[self.w_fifo]
+        self.checks = 0
+
+    def _chain(self, e: np.ndarray) -> np.ndarray:
+        return (e >= self.lo[1]) & (e < self.hi[1])
+
+    def _wait(self, e: np.ndarray, t: np.ndarray) -> np.ndarray:
+        """The wait of events ``e`` on events ``t`` (-1: none)."""
+        ce, ct = self._chain(e), self._chain(t)
+        in_t = (((t >= self.lo[0]) & (t < self.hi[0])) | ct) & (t >= 0)
+        lo_t = np.where(ct, self.lo[1], self.lo[0])
+        return np.where(in_t & (ce == ct), np.where(t < e, 0, self.never),
+                        np.where(in_t, t - lo_t + 1, self.never))
+
+    def _place(self, e: np.ndarray, wait: np.ndarray, out) -> None:
+        c = self._chain(e)
+        out[0][e[~c] - self.lo[0]] = wait[~c]
+        out[1][e[c] - self.lo[1]] = wait[c]
+
+    def feasible(self, depth: np.ndarray) -> bool:
+        """Whether the count-only Kahn walk runs both chains to their
+        ends with each bounded fifo ``f`` at ``depth[f]``.
+
+        With ``i`` events of chain 0 done, chain 1 gets through ``Y[i]``
+        events: those whose prefix max of waits is at most ``i``.  Chain
+        0's event ``i`` then issues iff its wait is at most ``Y[i]``, so
+        the walk completes iff that holds for every ``i`` and ``Y`` at
+        the end of chain 0 is all of chain 1."""
+        g = self.g
+        self.checks += 1
+        m = self.w_rank - depth[self.w_fifo]
+        hit = (m >= 0) & (m < self.w_reads)
+        t = np.full(m.shape, -1, dtype=np.int64)
+        t[hit] = g.read_evt_flat[self.w_base[hit] + m[hit]]
+        a, b = (w.copy() for w in self.read_waits)
+        self._place(self.writes,
+                    np.where(m < 0, 0, self._wait(self.writes, t)), (a, b))
+        y = np.searchsorted(np.maximum.accumulate(b),
+                            np.arange(self.n[0] + 1), side="right")
+        return bool(y[-1] == self.n[1] and np.all(a <= y[:-1]))
 
 
 def pair_feasible(g: SimGraph, pair: Tuple[int, int], fifos: List[int],
@@ -67,34 +144,14 @@ def pair_feasible(g: SimGraph, pair: Tuple[int, int], fifos: List[int],
     writes to third parties as never blocking (constraints dropped —
     that's what makes the bound sound).
     """
-    bounds, _ = _segments(g)
-    fset = set(fifos)
-    segs = [pair[0], pair[1]] if pair[0] != pair[1] else [pair[0]]
-    ev = {s: list(range(bounds[s], bounds[s + 1])) for s in segs}
-    cursor = {s: 0 for s in segs}
-    wcount = {f: 0 for f in fset}
-    rcount = {f: 0 for f in fset}
-    progress = True
-    while progress:
-        progress = False
-        for s in segs:
-            evs = ev[s]
-            while cursor[s] < len(evs):
-                e = evs[cursor[s]]
-                f = int(g.fifo[e])
-                if f in fset:
-                    r = int(g.rank[e])
-                    if g.kind[e] == READ:
-                        if r >= wcount[f]:
-                            break
-                        rcount[f] += 1
-                    else:
-                        if r >= rcount[f] + depths[f]:
-                            break
-                        wcount[f] += 1
-                cursor[s] += 1
-                progress = True
-    return all(cursor[s] == len(ev[s]) for s in segs)
+    return _PairChains(g, pair, fifos).feasible(_depth_vector(g, depths))
+
+
+def _depth_vector(g: SimGraph, depths: Dict[int, int]) -> np.ndarray:
+    d = np.zeros(g.n_fifos, dtype=np.int64)
+    for f, v in depths.items():
+        d[f] = v
+    return d
 
 
 def local_lower_bounds(g: SimGraph,
@@ -102,30 +159,43 @@ def local_lower_bounds(g: SimGraph,
     """Per-FIFO minimal candidate depth that is pair-feasible with all
     sibling FIFOs at their largest candidates.  Returns (n_fifos,) depths
     (2 where no pruning applies).  Timed by the :mod:`repro_torch.obs`
-    span ``local_bounds`` (``fifos``)."""
-    with obs.span("local_bounds", fifos=g.n_fifos):
-        return _local_lower_bounds(g, candidates)
+    span ``local_bounds`` (``fifos``; ``pairs``: the multi-FIFO pairs
+    examined; ``checks``: the depth vectors tested)."""
+    with obs.span("local_bounds", fifos=g.n_fifos) as span:
+        out, pairs, checks = _local_lower_bounds(g, candidates)
+        if span:
+            span.set(pairs=pairs, checks=checks)
+    return out
 
 
-def _local_lower_bounds(g: SimGraph,
-                        candidates: List[np.ndarray]) -> np.ndarray:
+def _local_lower_bounds(g: SimGraph, candidates: List[np.ndarray]):
     out = np.full(g.n_fifos, 2, dtype=np.int64)
+    n_pairs = n_checks = 0
     for pair, fifos in task_pairs(g).items():
         if len(fifos) < 2:
             continue        # single-FIFO pairs cannot reorder-deadlock
-        top = {f: int(candidates[f][-1]) for f in fifos}
+        n_pairs += 1
+        chains = _PairChains(g, pair, fifos)
+        top = _depth_vector(g, {f: int(candidates[f][-1]) for f in fifos})
+
+        def feasible(f, d):
+            depth = top.copy()
+            depth[f] = d
+            return chains.feasible(depth)
+
         for f in fifos:
             grid = candidates[f]
             # bisect the first feasible candidate (feasibility is monotone)
             lo, hi = 0, len(grid) - 1
-            if pair_feasible(g, pair, fifos, {**top, f: int(grid[0])}):
+            if feasible(f, int(grid[0])):
                 out[f] = int(grid[0])
                 continue
             while hi - lo > 1:
                 mid = (lo + hi) // 2
-                if pair_feasible(g, pair, fifos, {**top, f: int(grid[mid])}):
+                if feasible(f, int(grid[mid])):
                     hi = mid
                 else:
                     lo = mid
             out[f] = int(grid[hi])
-    return out
+        n_checks += chains.checks
+    return out, n_pairs, n_checks

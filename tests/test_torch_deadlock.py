@@ -49,7 +49,8 @@ from repro_torch.core.prune import local_lower_bounds, task_pairs
 from repro_torch.core.simgraph import build_simgraph
 from repro_torch.core.simulate import BatchedEvaluator
 from repro_torch.core.tracer import collect_trace
-from repro_torch.designs import (flowgnn_pna, generate_design, make_design,
+from repro_torch.designs import (flowgnn_pna, flowgnn_pna_stream,
+                                 generate_design, make_design, molhiv_stream,
                                  mult_by_2)
 
 
@@ -68,6 +69,9 @@ class _Ref:
     mult_by_2 = staticmethod(ref_mult_by_2)
     flowgnn_pna = staticmethod(ref_flowgnn_pna)
     generate_design = staticmethod(ref_generate_design)
+    # the reference package has no stream design: its functions then
+    # take the port's graph
+    flowgnn_pna_stream = staticmethod(lambda graphs, seed: None)
 
 
 class _Port:
@@ -75,6 +79,7 @@ class _Port:
     mult_by_2 = staticmethod(mult_by_2)
     flowgnn_pna = staticmethod(flowgnn_pna)
     generate_design = staticmethod(generate_design)
+    flowgnn_pna_stream = staticmethod(flowgnn_pna_stream)
 
 
 # (id, factory) of the designs every comparison runs on: the Stream-HLS
@@ -91,6 +96,13 @@ SMALL = [
 STREAMHLS = [(n, (lambda n: lambda m: m.make_design(n))(n))
              for n in ("gemm", "mvt", "atax", "k2mm", "FeedForward",
                        "k15mmtree")]
+
+
+# MolHIV streams of 32 molecules, the benchmark's job size
+STREAMS = [(f"molhiv_stream_{s}",
+            (lambda s: lambda m: m.flowgnn_pna_stream(molhiv_stream(32, s),
+                                                      seed=s))(s))
+           for s in (0, 5, 23)]
 
 
 def _both(factory):
@@ -152,11 +164,12 @@ def test_undersized_mult_by_2_blames_both_channels():
 
 
 # ----------------------------------------------------------- bounds, prune
-@pytest.mark.parametrize("name,factory", STREAMHLS + SMALL,
-                         ids=[s[0] for s in STREAMHLS + SMALL])
+@pytest.mark.parametrize("name,factory", STREAMHLS + SMALL + STREAMS,
+                         ids=[s[0] for s in STREAMHLS + SMALL + STREAMS])
 def test_bounds_and_pruning_equal_reference(name, factory):
     ref_d, d = _both(factory)
-    g, ref_g = build_simgraph(d), ref_build_simgraph(ref_d)
+    g = build_simgraph(d)
+    ref_g = g if ref_d is None else ref_build_simgraph(ref_d)
     got, want = channel_bounds(g), ref_channel_bounds(ref_g)
     for k in ("lower", "upper", "slack"):
         a, b = getattr(got, k), getattr(want, k)

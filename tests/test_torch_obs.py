@@ -18,6 +18,8 @@ from torch.profiler import ProfilerActivity, profile
 from repro_torch import obs
 from repro_torch.core import EvalConfig, FifoAdvisor
 from repro_torch.core.campaign import Campaign, CampaignSpec
+from repro_torch.core.optimizers import EvalContext
+from repro_torch.core.prune import task_pairs
 from repro_torch.designs import make_design
 from repro_torch.kernels.fifo_eval import ops
 
@@ -315,7 +317,27 @@ def _certified_advisor():
                                      certified_floor=True), device="cpu")
 
 
-def test_bounds_and_certification_spans_nest_under_the_baselines():
+def _reference_checks(adv, monkeypatch):
+    """Depth vectors the reference package's pair bounds test on the
+    advisor's graph and base grids."""
+    from repro.core import prune as ref_prune
+    calls = []
+    real = ref_prune.pair_feasible
+
+    def counted(*args):
+        calls.append(args[1])
+        return real(*args)
+
+    base = EvalContext(adv.graph, adv.evaluator,
+                       upper_bounds=adv._upper_bounds,
+                       occupancy_cap=adv.config.occupancy_cap, seed=0)
+    monkeypatch.setattr(ref_prune, "pair_feasible", counted)
+    ref_prune.local_lower_bounds(adv.graph, base.candidates)
+    return len(calls)
+
+
+def test_bounds_and_certification_spans_nest_under_the_baselines(
+        monkeypatch):
     obs.enable()
     adv = _certified_advisor()
     obs.disable()
@@ -327,7 +349,9 @@ def test_bounds_and_certification_spans_nest_under_the_baselines():
         (i,) = [k for k, r in enumerate(recs) if r[0] == name]
         assert recs[recs[i][3]][0] == "construct.baselines", name
     F = adv.graph.n_fifos
-    assert summ["local_bounds"]["attrs"] == {"fifos": F}
+    pairs = [fs for fs in task_pairs(adv.graph).values() if len(fs) > 1]
+    assert summ["local_bounds"]["attrs"] == {
+        "fifos": F, "pairs": len(pairs), "checks": _reference_checks(adv, monkeypatch)}
     assert summ["bounds"]["attrs"] == {
         "fifos": F, "tight": int(np.sum(bounds.lower == bounds.upper))}
     assert summ["certify"]["attrs"] == {
