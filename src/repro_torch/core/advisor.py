@@ -140,8 +140,9 @@ class FifoAdvisor:
             CUDA and raises without a card (pass ``"cpu"`` to run the
             plain torch versions on the CPU).
 
-    The constructor is the :mod:`repro_torch.obs` span ``construct``,
-    with one child a phase: ``construct.trace``, ``construct.simgraph``,
+    The constructor is the :mod:`repro_torch.obs` span ``construct``
+    (``fifos``), with one child a phase: ``construct.trace`` and
+    ``construct.simgraph`` (each with ``events``, the raw events),
     ``construct.evaluator`` (the rung cascade, the operands' upload) and
     ``construct.baselines``.
     """
@@ -149,14 +150,18 @@ class FifoAdvisor:
     def __init__(self, design: Design, config: Optional[EvalConfig] = None,
                  *, upper_bounds: Optional[np.ndarray] = None,
                  device=None):
-        with obs.span("construct"):
+        with obs.span("construct", fifos=design.n_fifos):
             self.config = config if config is not None else EvalConfig()
             t0 = time.perf_counter()
             self.design = design
-            with obs.span("construct.trace"):
+            with obs.span("construct.trace") as s:
                 self.trace: Trace = collect_trace(design)
-            with obs.span("construct.simgraph"):
+                if s:
+                    s.set(events=self.trace.n_events)
+            with obs.span("construct.simgraph") as s:
                 self.graph: SimGraph = build_simgraph(design, self.trace)
+                if s:
+                    s.set(events=self.graph.n_events)
             with obs.span("construct.evaluator"):
                 self.evaluator = BatchedEvaluator(self.graph, self.config,
                                                   device=device)
