@@ -126,11 +126,24 @@ class DispatchPolicy:
                  stats=None) -> Tuple[np.ndarray, np.ndarray, np.ndarray]:
         """(C, F) depths -> (latency int64, bram int64, deadlock bool)."""
         m = np.atleast_2d(np.asarray(depth_matrix))
+        lat, bram, status = self.launch(backend, m)
+        lat, dead = self.settle(backend, m, lat, status, stats)
+        return lat, bram, dead
+
+    def launch(self, backend: EvalBackend, m: np.ndarray
+               ) -> Tuple[np.ndarray, np.ndarray, np.ndarray]:
+        """(C, F) depths -> (latency, bram, status) at the backend's first
+        cap, UNRESOLVED rows left as they are."""
         C = m.shape[0]
         batch = self.pad_batch(m) if backend.wants_bucketing else m
         lat, bram, status = backend.evaluate(batch)
-        lat, bram, status = lat[:C], bram[:C], status[:C]
+        return lat[:C], bram[:C], status[:C]
 
+    def settle(self, backend: EvalBackend, m: np.ndarray, lat: np.ndarray,
+               status: np.ndarray, stats=None
+               ) -> Tuple[np.ndarray, np.ndarray]:
+        """Escalates the UNRESOLVED rows of a :meth:`launch` of ``m``:
+        ``(latency, deadlock)``, -1 latency on deadlocked rows."""
         dead = status == DEADLOCK
         unresolved = np.flatnonzero(status == UNRESOLVED)
         if unresolved.size:
@@ -139,8 +152,7 @@ class DispatchPolicy:
                       lambda r: self.worklist.evaluate(m[r]), lat, dead)
             if stats is not None:
                 stats.n_fallbacks += int(unresolved.size)
-        lat = np.where(dead, -1, lat)
-        return lat, bram, dead
+        return np.where(dead, -1, lat), dead
 
 
 class RungCascade:
@@ -182,9 +194,17 @@ class RungCascade:
         """Unique (C, F) rows -> exact ``(latency i64, deadlock bool)``
         with -1 latency on deadlocked rows."""
         m = np.asarray(m, dtype=np.int64)
+        lat, status = self.launch(m, stats)
+        return self.policy.settle(self.primary, m, lat, status, stats)
+
+    def launch(self, m: np.ndarray, stats=None
+               ) -> Tuple[np.ndarray, np.ndarray]:
+        """Unique (C, F) int64 rows -> ``(latency i64, status)``: the rungs,
+        then the raw backstop at its first cap, whose UNRESOLVED rows are
+        left for :meth:`DispatchPolicy.settle`."""
         C = m.shape[0]
         lat = np.zeros(C, dtype=np.int64)
-        dead = np.zeros(C, dtype=bool)
+        status = np.full(C, CONVERGED, dtype=np.int8)
         pending = np.ones(C, dtype=bool)
         for cg, impl in self.rungs:
             sel = np.flatnonzero(pending & cg.in_box(m))
@@ -199,8 +219,8 @@ class RungCascade:
                 stats.n_cond_fail += int(sel.size - acc.sum())
             if acc.any():
                 idx = sel[acc]
-                lat[idx] = np.where(dl[acc], -1, rlat[acc])
-                dead[idx] = dl[acc]
+                lat[idx] = rlat[acc]
+                status[idx] = np.where(dl[acc], DEADLOCK, CONVERGED)
                 pending[idx] = False
                 if stats is not None:
                     stats.n_condensed += int(acc.sum())
@@ -208,11 +228,9 @@ class RungCascade:
                 break
         rem = np.flatnonzero(pending)
         if rem.size:
-            rlat, _, rdead = self.policy.dispatch(
-                self.primary, m[rem], stats)
-            lat[rem] = rlat
-            dead[rem] = rdead
-        return lat, dead
+            lat[rem], _, status[rem] = self.policy.launch(self.primary,
+                                                          m[rem])
+        return lat, status
 
     def _rung(self, cg, impl, rows: np.ndarray
               ) -> Tuple[np.ndarray, np.ndarray, np.ndarray]:

@@ -28,8 +28,15 @@ Every probe differs from the invariant vector in exactly one FIFO, so
 probes go through the advisor-wide
 :class:`~repro_torch.core.backends.ConfigCache` and, on the worklist
 backend, ride the incremental ``solve_delta`` fast path (a few re-run
-task segments per probe instead of a full oracle simulation); on the
-tensor backends each probe is a one-row batched evaluation.
+task segments per probe instead of a full oracle simulation).  On a
+tensor backend on a CUDA device a probe costs a launch, whatever its
+rows, so the search is **speculative**: one evaluator call carries the
+next levels of the FIFO's bisection tree (the deepest tree that fits the
+dispatch policy's smallest bucket above one row: 3 levels, 7 rows, in
+the 8-row bucket), and the walk then follows the path the one-row search
+would take through the answers.  Only the visited rows count as probes,
+are escalated where UNRESOLVED and enter the cache, in visiting order,
+so the result, the counts and the cache are the one-row search's.
 :func:`certify_min_depths_oracle` is the naive discrete-event-simulation
 bisection, kept as the independent cross-check.
 """
@@ -69,13 +76,49 @@ class CertificationResult:
     n_cache_hits: int = 0     # feasibility probes answered by the cache
 
 
-def _probe_factory(evaluator, cache: Optional[ConfigCache]):
-    """Returns ``probe(row, base) -> (deadlocked, latency, bram, cached)``
-    routed through the cache and, when the evaluator prefers it, the
-    incremental re-simulation path (single-FIFO deltas of a solved
-    base).  ``cached`` is True when the cache answered — the driver
-    counts those separately so ``n_probes`` reports real evaluator work."""
-    def probe(row: np.ndarray, base: Optional[np.ndarray]):
+def _tree_levels(evaluator) -> int:
+    """Bisection levels one evaluator call carries: 1 where a probe pays
+    by the row; where it pays by the launch
+    (``BatchedEvaluator._pays_per_launch``), the deepest tree, ``2**k - 1``
+    rows, that fits the dispatch policy's smallest bucket above one row."""
+    if not getattr(evaluator, "_pays_per_launch", False):
+        return 1
+    bucket = min(b for b in evaluator.dispatch.buckets if b > 1)
+    return (bucket + 1).bit_length() - 1
+
+
+def _tree_mids(lo: int, hi: int, levels: int) -> list:
+    """The midpoints of the bisection tree's first ``levels`` levels below
+    ``(lo, hi)``, level by level: a node exists while its ``lo < hi``, a
+    feasible midpoint leads to ``(lo, mid)``, a deadlocked one to
+    ``(mid + 1, hi)``."""
+    mids, level = [], [(lo, hi)]
+    for _ in range(levels):
+        below = []
+        for a, b in level:
+            if a < b:
+                mid = (a + b) // 2
+                mids.append(mid)
+                below += [(a, mid), (mid + 1, b)]
+        level = below
+    return mids
+
+
+class _CachedProbe:
+    """``probe(row, base) -> (deadlocked, latency, bram, cached)`` routed
+    through the cache and, when the evaluator prefers it, the incremental
+    re-simulation path (single-FIFO deltas of a solved base).  ``cached``
+    is True when the cache answered — the driver counts those separately
+    so ``n_probes`` reports real evaluator work.  :meth:`tree` is the
+    speculative form, ``levels`` how deep it goes (1: not at all)."""
+
+    def __init__(self, evaluator, cache: Optional[ConfigCache]):
+        self.evaluator = evaluator
+        self.cache = cache
+        self.levels = _tree_levels(evaluator)
+
+    def __call__(self, row: np.ndarray, base: Optional[np.ndarray]):
+        evaluator, cache = self.evaluator, self.cache
         m = row[None, :]
         if cache is not None:
             lat, bram, dead, miss = cache.lookup(m)
@@ -90,7 +133,41 @@ def _probe_factory(evaluator, cache: Optional[ConfigCache]):
         if cache is not None:
             cache.insert(m, lat, bram, dead)
         return bool(dead[0]), int(lat[0]), int(bram[0]), False
-    return probe
+
+    def tree(self, rows: np.ndarray):
+        """The distinct ``rows`` of a bisection tree looked up in the
+        cache, and the misses launched as one evaluator call at the first
+        cap.  Returns ``(visit, launched)``: ``visit(i) -> (deadlocked,
+        cached)`` answers row ``i`` as a probe of it would, escalating it
+        where UNRESOLVED and recording it in the cache and its counts;
+        ``launched`` is the rows the call carried (0: no call)."""
+        cache, ev = self.cache, self.evaluator
+        if cache is not None:
+            counted = cache.stats.hits, cache.stats.misses
+            _, _, dead, miss = cache.lookup(rows)
+            # a row counts once it is visited, as a one-row probe counts
+            cache.stats.hits, cache.stats.misses = counted
+        else:
+            dead, miss = np.zeros(len(rows), dtype=bool), \
+                np.ones(len(rows), dtype=bool)
+        todo = np.flatnonzero(miss)
+        if todo.size:
+            lat, bram, status = ev._launch_unsettled(rows[todo])
+        slot = {int(i): j for j, i in enumerate(todo)}
+
+        def visit(i: int):
+            if not miss[i]:
+                if cache is not None:
+                    cache.stats.hits += 1
+                return bool(dead[i]), True
+            j = slot[i]
+            lat_i, dead_i = ev._settle(rows[i], lat[j], status[j])
+            if cache is not None:
+                cache.stats.misses += 1
+                cache.insert(rows[i][None, :], np.array([lat_i]),
+                             bram[j:j + 1], np.array([dead_i]))
+            return dead_i, False
+        return visit, int(todo.size)
 
 
 def _coordinate_descent(g: SimGraph, probe,
@@ -116,20 +193,30 @@ def _coordinate_descent(g: SimGraph, probe,
     above ``floor`` can only land exactly on ``floor``.
 
     Timed by the :mod:`repro_torch.obs` span ``certify``: ``probes``
-    (cache misses), ``cache_hits`` and ``pinned`` (FIFOs certified above
-    depth 1).
+    (cache misses), ``cache_hits``, ``pinned`` (FIFOs certified above
+    depth 1), ``launches`` (the evaluator calls the descent made) and
+    ``spec_rows`` (rows launched that the walk never visited).
     """
     with obs.span("certify") as span:
-        res = _descend(g, probe, upper, lower, bounds)
+        res, tally = _descend(g, probe, upper, lower, bounds)
         if span:
             span.set(probes=res.n_probes, cache_hits=res.n_cache_hits,
-                     pinned=int(np.sum(res.depths > 1)))
+                     pinned=int(np.sum(res.depths > 1)), **tally)
     return res
 
 
 def _descend(g: SimGraph, probe, upper: Optional[np.ndarray],
-             lower: Optional[np.ndarray], bounds=None) -> CertificationResult:
+             lower: Optional[np.ndarray], bounds=None,
+             levels: Optional[int] = None):
+    """The descent: ``(CertificationResult, {"launches", "spec_rows"})``.
+
+    ``levels`` is how many bisection levels one evaluator call carries;
+    None takes the probe's own (``probe.levels``, 1 where it has none),
+    and above 1 the probe must have a ``tree`` (:class:`_CachedProbe`).
+    """
     t0 = time.perf_counter()
+    if levels is None:
+        levels = getattr(probe, "levels", 1)
     F = g.n_fifos
     start = (np.asarray(upper, dtype=np.int64) if upper is not None
              else g.max_occupancy)
@@ -143,10 +230,12 @@ def _descend(g: SimGraph, probe, upper: Optional[np.ndarray],
         floor = np.maximum(floor, np.minimum(bounds.lower, start))
     floor = np.maximum(floor, 1)
     stats = {"miss": 0, "hit": 0}
+    tally = {"launches": 0, "spec_rows": 0}
 
     def run(row, base):
         dead, lat, bram, cached = probe(row, base)
         stats["hit" if cached else "miss"] += 1
+        tally["launches"] += not cached
         return dead, lat, bram
 
     # Floors above the start raise it: the result must respect `lower`
@@ -173,14 +262,28 @@ def _descend(g: SimGraph, probe, upper: Optional[np.ndarray],
         lo, hi = int(floor[f]), int(cur[f])
         # invariant: cur with cur[f] = hi is verified deadlock-free
         while lo < hi:
-            mid = (lo + hi) // 2
-            row = cur.copy()
-            row[f] = mid
-            d, _, _ = run(row, cur)
-            if d:
-                lo = mid + 1
-            else:
-                hi = mid
+            if levels == 1:
+                mid = (lo + hi) // 2
+                row = cur.copy()
+                row[f] = mid
+                d, _, _ = run(row, cur)
+                lo, hi = (mid + 1, hi) if d else (lo, mid)
+                continue
+            mids = _tree_mids(lo, hi, levels)
+            rows = np.repeat(cur[None, :], len(mids), axis=0)
+            rows[:, f] = mids
+            visit, launched = probe.tree(rows)
+            tally["launches"] += launched > 0
+            tally["spec_rows"] += launched
+            node = {m: i for i, m in enumerate(mids)}
+            for _ in range(levels):
+                if lo >= hi:
+                    break
+                mid = (lo + hi) // 2
+                d, cached = visit(node[mid])
+                stats["hit" if cached else "miss"] += 1
+                tally["spec_rows"] -= not cached
+                lo, hi = (mid + 1, hi) if d else (lo, mid)
         cur[f] = hi
 
     # final vector: re-resolve its objectives (cached when already probed)
@@ -189,7 +292,7 @@ def _descend(g: SimGraph, probe, upper: Optional[np.ndarray],
     return CertificationResult(depths=cur, start=start, latency=lat,
                                bram=bram, n_probes=stats["miss"],
                                n_cache_hits=stats["hit"],
-                               wall_s=time.perf_counter() - t0)
+                               wall_s=time.perf_counter() - t0), tally
 
 
 def certify_min_depths(g: SimGraph, evaluator,
@@ -210,7 +313,7 @@ def certify_min_depths(g: SimGraph, evaluator,
     Raises ``ValueError`` when the start vector itself deadlocks (it
     cannot, unless ``upper`` is below the design's occupancy needs).
     """
-    return _coordinate_descent(g, _probe_factory(evaluator, cache),
+    return _coordinate_descent(g, _CachedProbe(evaluator, cache),
                                upper, lower, bounds=bounds)
 
 

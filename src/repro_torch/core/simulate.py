@@ -25,7 +25,9 @@ The stable façade over :mod:`repro_torch.core.backends`:
 
 Each :meth:`BatchedEvaluator.evaluate` call is one :mod:`repro_torch.obs`
 span, ``evaluate`` (``rows``; ``unique``: the rows left after
-deduplication).
+deduplication), and so is each of the certifier's speculative calls
+(``_launch_unsettled``), whose UNRESOLVED rows the certifier escalates
+one at a time, as its walk visits them (``_settle``).
 
 Numeric domain: times are exact in float32 while below 2**24; the design's
 schedule upper bound must stay below 1.5e7 cycles.
@@ -235,6 +237,46 @@ class BatchedEvaluator:
         lat, dead = self._cascade.evaluate(m, self.stats)
         bram = design_bram_np(m, np.asarray(self.g.widths))
         return lat, bram, dead
+
+    # ------------------------------------ the certifier's speculative calls
+    @property
+    def _pays_per_launch(self) -> bool:
+        """Whether a call of a few rows costs about what a call of one
+        does: a tensor backend on a CUDA device, where a probe's time is
+        the launch's host work and one K2 launch.  The certifier then
+        bisects several levels a call."""
+        dev = getattr(self._impl, "device", None)
+        return (not self.prefer_incremental
+                and getattr(dev, "type", None) == "cuda")
+
+    def _launch_unsettled(self, m: np.ndarray
+                          ) -> Tuple[np.ndarray, np.ndarray, np.ndarray]:
+        """One evaluator call over distinct (C, F) rows, counted as
+        :meth:`evaluate` counts one: ``(latency, bram, status)`` through
+        the rung cascade and the raw backend at its first cap, the
+        UNRESOLVED rows left for :meth:`_settle`."""
+        m = np.asarray(m, dtype=np.int64)
+        C = m.shape[0]
+        with obs.span("evaluate", rows=C, unique=C):
+            if self._cascade is None:
+                out = self.dispatch.launch(self._impl, m)
+            else:
+                lat, status = self._cascade.launch(m, self.stats)
+                out = (lat, design_bram_np(m, np.asarray(self.g.widths)),
+                       status)
+        self.stats.n_calls += 1
+        self.stats.n_configs += C
+        return out
+
+    def _settle(self, row: np.ndarray, lat: int, status: int
+                ) -> Tuple[int, bool]:
+        """``(latency, deadlock)`` of one row of :meth:`_launch_unsettled`,
+        escalated as :meth:`evaluate` escalates it where UNRESOLVED; -1
+        latency on a deadlock."""
+        lat, dead = self.dispatch.settle(
+            self._impl, np.asarray(row, dtype=np.int64)[None, :],
+            np.array([lat], dtype=np.int64), np.array([status]), self.stats)
+        return int(lat[0]), bool(dead[0])
 
     # ------------------------------------------------ incremental fast path
     @property
